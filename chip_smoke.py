@@ -7,10 +7,16 @@ Phases (any failure raises and the exit code is nonzero):
 
 1. versions, the card's name and power limit, true-f32 matmul flags;
 2. build the CUDA kernels from ``ov_plane_tpu_torch/csrc`` with nvcc;
-3. check each kernel against its plain PyTorch version on the card, in f32
-   and f64, at the filter's shapes and at unaligned ones, for tolerance and
-   exact symmetry, and time kernel, plain version and one PyTorch library
-   call (CUDA events, median of 50 launches after warm-up);
+3. check each kernel against its plain PyTorch version on the card over a
+   sweep of shapes (SWEEP: tile, chunk and range edges, empty inputs, masked
+   rows, a data pointer 4 bytes off 16-byte alignment), in f32 and f64, for
+   tolerance, exact symmetry and bitwise-equal repeated calls; then time, at
+   the main path's f32 shapes, the kernel, the earlier simple tile kernel
+   (tools/gram_simple.cu, a yardstick built here beside the package's
+   kernels), the plain version and one PyTorch library call by
+   device time alone (the durations of their CUDA kernels as torch.profiler
+   reports them, median of 25 calls, L2 flushed before each), and the
+   wrapper's host time per call;
 4. drive the main path: the bench's simulator scene, 64 Monte-Carlo streams
    from a seeded generator, ``VioEngine`` + ``run_sequence`` over every frame
    in f32; check the launch counts, finiteness, stream 0's accuracy and the
@@ -22,24 +28,29 @@ Needs a CUDA card: without one it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import json
-import math
 import statistics
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import torch
 
 BATCH = 64
 SEED = 7
+# The main path's kernel shapes: the gram stacks 40 features × (3·12 − 3)
+# rows over the 93 state columns; the downdate has M = D = 93.
+MAIN_M, MAIN_D = 40 * (3 * 12 - 3), 93
 # f32 kernel vs plain: max|kernel − plain| ≤ TOL·max|plain| (the row sums run
 # in another order); f64 the same at 1e-12.
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # Published dense peaks outside the tensor cores (NVIDIA data sheets):
-# (memory bytes/s, f32 FLOP/s, f64 FLOP/s).
-PEAKS = {"SXM": (3.35e12, 67e12, 34e12), "PCIe": (2.0e12, 51e12, 26e12), "NVL": (3.9e12, 60e12, 30e12)}
+# (memory bytes/s, f32 FLOP/s).
+PEAKS = {"SXM": (3.35e12, 67e12), "PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12)}
 
 
 def card_peaks(name: str):
@@ -49,79 +60,226 @@ def card_peaks(name: str):
     return PEAKS["SXM"]
 
 
-def time_ms(fn, n: int = 50, warmup: int = 10) -> float:
-    """Median device time of one call, from a pair of CUDA events per call."""
+EARLIER_SRC = Path(__file__).resolve().parent / "tools" / "gram_simple.cu"
+FLUSH_BYTES = 256 << 20  # written before each timed call: five times the 50 MB L2
+# The correctness sweep: every D (tile edges 31/32/63/95/96, the filter's 93,
+# the calibrated 195, the largest 300) with every M (empty, one chunk or
+# less, chunk and row-range edges, the filter's 1320, a long 4096), B cycling
+# over 1, 5, 64. Even entries take H at storage offset 1 (4 bytes off 16-byte
+# alignment in f32), and every entry has a band of zero (masked) rows.
+SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 195, 300)
+SWEEP_M = (0, 1, 3, 93, 94, 300, 1320, 4096)
+SWEEP_B = (1, 5, 64)
+SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in enumerate(SWEEP_M)]
+
+
+def _is_flush(name: str) -> bool:
+    """The flush's own kernels: the uint8 rewrite and read (and a memset the read may launch)."""
+    return "bitwise_not" in name or "unsigned char" in name or name.startswith("Memset")
+
+
+def device_ms(fn, n: int = 25, warmup: int = 3, attempts: int = 3, parts: dict | None = None) -> float:
+    """Median device time of one call of ``fn``: the summed durations of the
+    CUDA kernels it launches, as torch.profiler reports them. Before each call
+    two kernels rewrite and then read FLUSH_BYTES of uint8, so every call finds
+    the L2 cold and clean (no write-back of the flush's own lines is left to
+    it); they are left out of the sum, and so is the host's time between
+    launches. A profile that lost a kernel (the count is checked) is taken
+    again. ``parts``, if given, receives each kernel's median ms by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        buf.bitwise_not_()
+        buf.amax()
+
     for _ in range(warmup):
+        flush()
         fn()
-    pairs = []
-    for _ in range(n):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            for _ in range(n):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"), key=lambda e: e.time_range.start)
+        calls, in_flush, by_name = [], True, {}
+        for e in events:
+            if _is_flush(e.name):
+                in_flush = True
+                continue
+            if in_flush:
+                calls.append(0.0)
+                in_flush = False
+            calls[-1] += e.time_range.end - e.time_range.start
+            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+        if len(calls) == n and all(c > 0 for c in calls):
+            if parts is not None:
+                parts.update({k: statistics.median(v) / 1e3 for k, v in by_name.items()})
+            return statistics.median(calls) / 1e3
+        print(f"[time] the profile holds {len(calls)} of {n} timed calls; profiling again")
+    raise RuntimeError(f"the profiler did not record the {n} timed calls in {attempts} attempts")
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Median host time of one call of ``fn`` (its launch, not its device work)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return statistics.median(ts) * 1e6
+
+
+def start_earlier_build(kernels):
+    """Start nvcc on the earlier simple tile kernel (EARLIER_SRC), the timing
+    yardstick, with the package's flags; returns a function that waits for
+    it and returns its launcher ``earlier(X, x, base=None)`` for f32 CUDA
+    tensors: (Gram, vec) without a base, (base − Gram, vec) with one."""
+    src = EARLIER_SRC.read_bytes()
+    out = kernels.BUILD_DIR / f"libovp_gram_simple_{hashlib.sha256(src).hexdigest()[:16]}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(".tmp")
+    proc = None if out.exists() else subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(tmp), str(EARLIER_SRC)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def wait():
+        if proc is not None:
+            report = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {EARLIER_SRC.name}:\n{report}")
+            tmp.replace(out)
+        fn = ctypes.CDLL(str(out)).ovp_gram_simple_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def earlier(X, x, base=None):
+            B, M, D = X.shape
+            res = torch.empty(B, D, D, device=X.device)
+            vec = torch.empty(B, D, device=X.device)
+            err = fn(X.data_ptr(), x.data_ptr(), None if base is None else base.data_ptr(), res.data_ptr(),
+                     vec.data_ptr(), B, M, D, torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"gram_simple kernel launch failed with cudaError_t {err}")
+            return res, vec
+        return earlier
+    return wait
+
+
+def _inputs(kname, B, M, D, dtype, g, offset=False, zero_rows=True):
+    dev = "cuda"
+    n = B * M * D
+    X = torch.randn(n + 1, generator=g, device=dev, dtype=dtype)[1:] if offset else \
+        torch.randn(n, generator=g, device=dev, dtype=dtype)
+    X = X.view(B, M, D)
+    x = torch.randn(B, M, generator=g, device=dev, dtype=dtype)
+    if zero_rows and M >= 3:
+        X[:, M // 3:M // 2] = 0.0
+        x[:, M // 3:M // 2] = 0.0
+    if kname == "gram_reduce":
+        return (X, x)
+    A = torch.randn(B, D, D, generator=g, device=dev, dtype=dtype)
+    P = A @ A.transpose(-1, -2) / D + torch.eye(D, device=dev, dtype=dtype)
+    return (P, X, x)
 
 
 def check_kernels(kernels):
-    """Phase 3: each kernel against its plain version; returns the JSON rows."""
-    dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    name = torch.cuda.get_device_name(0)
-    mem_bps, f32_flops, f64_flops = card_peaks(name)
-    # (B, M, D): the main path's shapes first, then unaligned ones.
-    shapes = {"gram_reduce": [(BATCH, 40 * (3 * 12 - 3), 93), (5, 300, 70)],
-              "kalman_downdate": [(BATCH, 93, 93), (5, 300, 70)]}
-    rows = {}
-    for kname, shape_list in shapes.items():
+    """Phase 3a: each kernel against its plain version over the sweep, f32 and
+    f64: tolerance, bitwise symmetry, two calls bitwise equal. Returns the
+    max |kernel − plain| at the main path's f32 shapes."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    main = {"gram_reduce": (BATCH, MAIN_M, MAIN_D), "kalman_downdate": (BATCH, MAIN_D, MAIN_D)}
+    errs, failures = {}, []
+    for kname in ("gram_reduce", "kalman_downdate"):
+        kern, ref_fn = getattr(kernels, kname), getattr(kernels, kname + "_ref")
         for dtype in (torch.float32, torch.float64):
-            for (B, M, D) in shape_list:
-                X = torch.randn(B, M, D, generator=g, device=dev, dtype=dtype)
-                x = torch.randn(B, M, generator=g, device=dev, dtype=dtype)
-                if kname == "gram_reduce":
-                    args = (X, x)
-                    out, vec = kernels.gram_reduce(*args)
-                    ref, ref_vec = kernels.gram_reduce_ref(*args)
-                else:
-                    A = torch.randn(B, D, D, generator=g, device=dev, dtype=dtype)
-                    P = A @ A.transpose(-1, -2) + D * torch.eye(D, device=dev, dtype=dtype)
-                    args = (P, X, x)
-                    out, vec = kernels.kalman_downdate(*args)
-                    ref, ref_vec = kernels.kalman_downdate_ref(*args)
-                torch.cuda.synchronize()
-                err = max((out - ref).abs().max().item(), (vec - ref_vec).abs().max().item())
-                scale = max(ref.abs().max().item(), ref_vec.abs().max().item())
-                sym = torch.equal(out, out.transpose(-1, -2))
-                print(f"[check] {kname} {str(dtype)[6:]} B={B} M={M} D={D}: max_abs_err={err:.3e} "
-                      f"(limit {TOL[dtype] * scale:.3e}) bitwise_symmetric={sym}")
-                if not (err <= TOL[dtype] * scale and sym and torch.isfinite(out).all()):
-                    raise RuntimeError(f"{kname} disagrees with its plain version at {dtype} {(B, M, D)}")
-                if dtype != torch.float32 or (B, M, D) != shape_list[0]:
-                    continue
-                # Timing at the main path's f32 shapes.
-                if kname == "gram_reduce":
-                    Xa = torch.cat([X, x[..., None]], dim=-1)
-                    lib = lambda: torch.bmm(X.transpose(-1, -2), Xa)  # [HᵀH | Hᵀr]  # noqa: E731
-                    bytes_ = 4 * (B * M * D + B * M + B * D * D + B * D)
-                else:
-                    Xa = torch.cat([X, -x[..., None]], dim=-1)
-                    Pa = torch.cat([P, torch.zeros(B, D, 1, device=dev)], dim=-1)
-                    lib = lambda: torch.baddbmm(Pa, X.transpose(-1, -2), Xa, alpha=-1.0)  # [P−WᵀW | Wᵀu]  # noqa: E731
-                    bytes_ = 4 * (2 * B * D * D + B * M * D + B * M + B * D)
-                flops = 2 * B * M * (D * (D + 1) // 2 + D)  # upper triangle + the folded column
-                t_bytes, t_ops = bytes_ / mem_bps * 1e3, flops / f32_flops * 1e3
-                calls_before = getattr(kernels, kname).launches
-                k_ms = time_ms(lambda: getattr(kernels, kname)(*args))
-                getattr(kernels, kname).launches = calls_before
-                p_ms = time_ms(lambda: getattr(kernels, kname + "_ref")(*args))
-                l_ms = time_ms(lib)
-                rows[kname] = dict(max_abs_err=err, ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms,
-                                   bound_ms=max(t_bytes, t_ops),
-                                   bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=l_ms)
-                print(f"[time] {kname} f32 B={B} M={M} D={D}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                      f"library {l_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-                      f"({rows[kname]['bound_by']}; {bytes_ / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+            worst = 0.0
+            shapes = [(main[kname], False)] + [(s, i % 2 == 0) for i, s in enumerate(SWEEP)]
+            for (B, M, D), offset in shapes:
+                args = _inputs(kname, B, M, D, dtype, g, offset=offset)
+                try:
+                    out, vec = kern(*args)
+                    out2, vec2 = kern(*args)
+                    ref, ref_vec = ref_fn(*args)
+                    torch.cuda.synchronize()
+                except Exception:
+                    print(f"[check] {kname} {str(dtype)[6:]} B={B} M={M} D={D} offset={offset} raised")
+                    raise
+                err = max((out - ref).abs().max().item(), (vec - ref_vec).abs().max().item() if vec.numel() else 0.0)
+                scale = max(ref.abs().max().item(), ref_vec.abs().max().item() if vec.numel() else 0.0)
+                ok = (err <= TOL[dtype] * scale and torch.equal(out, out.transpose(-1, -2))
+                      and torch.equal(out, out2) and torch.equal(vec, vec2) and bool(torch.isfinite(out).all()))
+                worst = max(worst, err / scale if scale > 0 else err)
+                if (B, M, D) == main[kname] and not offset:
+                    errs.setdefault(kname, err)
+                if not ok:
+                    failures.append(f"{kname} {str(dtype)[6:]} B={B} M={M} D={D} offset={offset}: err {err:.3e} "
+                                    f"limit {TOL[dtype] * scale:.3e} symmetric {torch.equal(out, out.mT)} "
+                                    f"repeatable {torch.equal(out, out2) and torch.equal(vec, vec2)}")
+                    print(f"[check] FAIL {failures[-1]}")
+            print(f"[check] {kname} {str(dtype)[6:]}: {len(shapes)} shapes, worst max_abs_err/max|plain| "
+                  f"{worst:.3e} (limit {TOL[dtype]:.0e}); bitwise symmetric and repeatable")
+    if failures:
+        raise RuntimeError(f"{len(failures)} kernel checks failed: {failures[:5]}")
+    return errs
+
+
+def time_kernels(kernels, errs, earlier_kernel):
+    """Phase 3b: device time (torch.profiler, cold L2) of each kernel, of the
+    earlier simple tile kernel (checked against the plain version first), of
+    the plain version and of one library call at the main path's f32 shapes;
+    the wrapper's host time; the bound."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    mem_bps, f32_flops = card_peaks(torch.cuda.get_device_name(0))
+    rows = {}
+    for kname, (B, M, D) in (("gram_reduce", (BATCH, MAIN_M, MAIN_D)), ("kalman_downdate", (BATCH, MAIN_D, MAIN_D))):
+        kern, ref_fn = getattr(kernels, kname), getattr(kernels, kname + "_ref")
+        args = _inputs(kname, B, M, D, torch.float32, g, zero_rows=False)
+        if kname == "gram_reduce":
+            X, x = args
+            Xa = torch.cat([X, x[..., None]], dim=-1)
+            lib = lambda: torch.bmm(X.transpose(-1, -2), Xa)  # [HᵀH | Hᵀr]  # noqa: E731
+            earlier = lambda: earlier_kernel(X, x)  # noqa: E731
+            bytes_ = 4 * (B * M * D + B * M + B * D * D + B * D)
+        else:
+            P, X, x = args
+            Xa = torch.cat([X, -x[..., None]], dim=-1)
+            Pa = torch.cat([P, torch.zeros(B, D, 1, device="cuda")], dim=-1)
+            lib = lambda: torch.baddbmm(Pa, X.transpose(-1, -2), Xa, alpha=-1.0)  # [P−WᵀW | −Wᵀu]  # noqa: E731
+            earlier = lambda: earlier_kernel(X, x, P)  # noqa: E731
+            bytes_ = 4 * (2 * B * D * D + B * M * D + B * M + B * D)
+        flops = 2 * B * M * (D * (D + 1) // 2 + D)  # upper triangle + the folded column
+        t_bytes, t_ops = bytes_ / mem_bps * 1e3, flops / f32_flops * 1e3
+        bound = max(t_bytes, t_ops)
+        e_out, ref_out = earlier(), ref_fn(*args)
+        e_err = max((a - b).abs().max().item() for a, b in zip(e_out, ref_out))
+        if not e_err <= TOL[torch.float32] * max(b.abs().max().item() for b in ref_out):
+            raise RuntimeError(f"the earlier {kname} kernel disagrees with the plain version: {e_err:.3e}")
+        calls_before = kern.launches
+        k_parts = {}
+        k_ms = device_ms(lambda: kern(*args), parts=k_parts)
+        k_host = host_us(lambda: kern(*args))
+        kern.launches = calls_before
+        e_ms, p_ms, l_ms = device_ms(earlier), device_ms(lambda: ref_fn(*args)), device_ms(lib)
+        rows[kname] = dict(max_abs_err=errs[kname], ms=k_ms, device_ms=k_ms, earlier_device_ms=e_ms,
+                           plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           pct_of_bound=100.0 * bound / k_ms, host_us_per_call=k_host,
+                           bytes=bytes_, flops=flops)
+        print(f"[time] {kname} f32 B={B} M={M} D={D}, device time, cold L2: kernel {k_ms:.5f} ms "
+              f"({100 * bound / k_ms:.1f}% of bound), earlier kernel {e_ms:.5f} ms, plain {p_ms:.5f} ms, "
+              f"library {l_ms:.5f} ms, bound {bound:.5f} ms ({rows[kname]['bound_by']}; "
+              f"{bytes_ / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP)")
+        print(f"[time] {kname} its kernels: " + ", ".join(f"{k.split('<')[0].split()[-1]} {v:.5f} ms"
+                                                        for k, v in k_parts.items()))
+        print(f"[time] {kname} wrapper host time {k_host:.2f} us per call")
     return rows
 
 
@@ -285,14 +443,16 @@ def main() -> int:
     print(smi[0])
 
     t = time.time()
+    earlier_build = start_earlier_build(kernels)
     reports = kernels.build()
-    print(f"[build] {len(reports)} kernels built with nvcc in {time.time() - t:.2f} s")
+    earlier_kernel = earlier_build()
+    print(f"[build] {len(reports)} kernels and the earlier one built with nvcc in {time.time() - t:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
-    rows = check_kernels(kernels)
+    rows = time_kernels(kernels, check_kernels(kernels), earlier_kernel)
     n_frames, launches, info = drive_main_path()
     profile_frames(1e3 * info["wall_s"] / n_frames)
 

@@ -6,14 +6,39 @@ conftest imports JAX, so run it there without it:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 
-f32 agrees to 1e-5 of the largest value (the row sums run in another order
-than the plain product), f64 to 1e-12; Λ and P′ must be bitwise symmetric.
+The sweep is chip_smoke.py's: every D of SWEEP_D with every M of SWEEP_M
+(tile, chunk and split edges, empty inputs), B cycling over 1, 5, 64; a band
+of zero (masked) rows, and H at storage offset 1 (4 bytes off 16-byte
+alignment in f32) in every other entry. f32 agrees to 1e-5 of the largest
+value (the row sums run in another order than the plain product), f64 to
+1e-12; Λ and P′ must be bitwise symmetric, and two calls bitwise equal.
 """
 
 import pytest
 import torch
 
 from ov_plane_tpu_torch.ops import kernels
+
+SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 195, 300)
+SWEEP_M = (0, 1, 3, 93, 94, 300, 1320, 4096)
+SWEEP_B = (1, 5, 64)
+SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in enumerate(SWEEP_M)]
+SWEEP = [(64, 1320, 93), (64, 93, 93)] + SWEEP
+
+
+def _inputs(B, M, D, dtype, g, offset):
+    n = B * M * D
+    flat = torch.randn(n + 1, generator=g, device="cuda", dtype=dtype)
+    H = (flat[1:] if offset else flat[:n]).view(B, M, D)
+    r = torch.randn(B, M, generator=g, device="cuda", dtype=dtype)
+    if M >= 3:
+        H[:, M // 3:M // 2] = 0.0
+        r[:, M // 3:M // 2] = 0.0
+    return H, r
+
+
+def _close(a, ref, tol):
+    return a.numel() == 0 or (a - ref).abs().max() <= tol * ref.abs().max()
 
 
 @pytest.mark.cuda
@@ -23,21 +48,20 @@ def test_cuda_kernels_match_plain(dtype):
         pytest.skip("needs a CUDA card: the kernels are built with nvcc for sm_90a")
     g = torch.Generator(device="cuda").manual_seed(0)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
-    for B, M, D in ((5, 300, 70), (64, 1320, 93), (64, 93, 93)):
-        H = torch.randn(B, M, D, generator=g, device="cuda", dtype=dtype)
-        r = torch.randn(B, M, generator=g, device="cuda", dtype=dtype)
+    for n, (B, M, D) in enumerate(SWEEP):
+        H, r = _inputs(B, M, D, dtype, g, offset=n % 2 == 1)
         before = kernels.gram_reduce.launches
         lam, eta = kernels.gram_reduce(H, r)
         assert kernels.gram_reduce.launches == before + 1
+        lam2, eta2 = kernels.gram_reduce(H, r)
         lam_r, eta_r = kernels.gram_reduce_ref(H, r)
         torch.cuda.synchronize()
-        assert (lam - lam_r).abs().max() <= tol * lam_r.abs().max()
-        assert (eta - eta_r).abs().max() <= tol * eta_r.abs().max()
-        assert torch.equal(lam, lam.mT)
-        cov = lam_r / M + torch.eye(D, device="cuda", dtype=dtype)
+        assert _close(lam, lam_r, tol) and _close(eta, eta_r, tol), (B, M, D)
+        assert torch.equal(lam, lam.mT) and torch.equal(lam, lam2) and torch.equal(eta, eta2), (B, M, D)
+        cov = lam_r / max(M, 1) + torch.eye(D, device="cuda", dtype=dtype)
         nc, dx = kernels.kalman_downdate(cov, H, r)
+        nc2, dx2 = kernels.kalman_downdate(cov, H, r)
         nc_r, dx_r = kernels.kalman_downdate_ref(cov, H, r)
         torch.cuda.synchronize()
-        assert (nc - nc_r).abs().max() <= tol * nc_r.abs().max()
-        assert (dx - dx_r).abs().max() <= tol * dx_r.abs().max()
-        assert torch.equal(nc, nc.mT)
+        assert _close(nc, nc_r, tol) and _close(dx, dx_r, tol), (B, M, D)
+        assert torch.equal(nc, nc.mT) and torch.equal(nc, nc2) and torch.equal(dx, dx2), (B, M, D)
