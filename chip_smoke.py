@@ -11,23 +11,31 @@ Phases (any failure raises and the exit code is nonzero):
    sweep of shapes (SWEEP: tile, chunk and range edges, empty inputs, masked
    rows, a data pointer 4 bytes off 16-byte alignment), in f32 and f64, for
    tolerance, exact symmetry and bitwise-equal repeated calls; then time, at
-   the main path's f32 shapes, the kernel, the earlier simple tile kernel
+   each path's f32 shapes, the kernel, the earlier simple tile kernel
    (tools/gram_simple.cu, a yardstick built here beside the package's
    kernels), the plain version and one PyTorch library call by
    device time alone (the durations of their CUDA kernels as torch.profiler
    reports them, median of 25 calls, L2 flushed before each), and the
    wrapper's host time per call;
-4. drive the main path: the bench's simulator scene, 64 Monte-Carlo streams
-   from a seeded generator, ``VioEngine`` + ``run_sequence`` over every frame
-   in f32; check the launch counts, finiteness, stream 0's accuracy and the
-   agreement of two streams with an f64 CPU run of the port;
-5. print the ``{"kernels": [...]}`` line, then the device line last.
+4. drive the point path: the bench's simulator scene, 64 Monte-Carlo streams
+   from a seeded generator, ``VioEngine`` + ``run_sequence`` over its first
+   160 frames in f32, timed after a warm-up that also counts host
+   synchronizations inside 9 steps; check the launch counts, finiteness,
+   stream 0's accuracy and the agreement of two streams with an f64 CPU run
+   of the port (the per-frame count of features that passed the χ² gate
+   printed beside it); profile 5 frames;
+5. drive the plane path the same way (``plane_config``, the committed M-PL
+   scene, all 287 frames, 64 streams, f32): also the plane states and
+   constraint updates, every final CP within 0.10 m of a true plane, and the
+   per-frame plane counters against the f64 CPU run (60 frames);
+6. print the ``{"kernels": [...]}`` line, then the device line last.
 
 Needs a CUDA card: without one it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import hashlib
 import json
@@ -37,14 +45,25 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 BATCH = 64
 SEED = 7
-# The main path's kernel shapes: the gram stacks 40 features × (3·12 − 3)
-# rows over the 93 state columns; the downdate has M = D = 93.
-MAIN_M, MAIN_D = 40 * (3 * 12 - 3), 93
+# Each path's kernel shapes (B, M, D): the gram stacks 40 features × (3·12 − 3)
+# rows over the D state columns (93 on the point path, 114 with 8 plane
+# slots); the downdate closes the classic update with M = D rows, and on the
+# plane path the grouped plane update and both delayed-init candidates with
+# M = D + 1.
+GRAM_M = 40 * (3 * 12 - 3)
+PATH_SHAPES = {
+    "point": {"gram_reduce": [(BATCH, GRAM_M, 93)], "kalman_downdate": [(BATCH, 93, 93)]},
+    "plane": {"gram_reduce": [(BATCH, GRAM_M, 114)], "kalman_downdate": [(BATCH, 114, 114), (BATCH, 115, 114)]},
+}
+# The shape whose numbers lead each kernel's entry of the {"kernels": ...}
+# line: the plane path's (slice 3), the downdate at its most frequent M.
+LEAD = {"gram_reduce": (BATCH, GRAM_M, 114), "kalman_downdate": (BATCH, 115, 114)}
 # f32 kernel vs plain: max|kernel − plain| ≤ TOL·max|plain| (the row sums run
 # in another order); f64 the same at 1e-12.
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -62,13 +81,14 @@ def card_peaks(name: str):
 
 EARLIER_SRC = Path(__file__).resolve().parent / "tools" / "gram_simple.cu"
 FLUSH_BYTES = 256 << 20  # written before each timed call: five times the 50 MB L2
-# The correctness sweep: every D (tile edges 31/32/63/95/96, the filter's 93,
-# the calibrated 195, the largest 300) with every M (empty, one chunk or
-# less, chunk and row-range edges, the filter's 1320, a long 4096), B cycling
-# over 1, 5, 64. Even entries take H at storage offset 1 (4 bytes off 16-byte
-# alignment in f32), and every entry has a band of zero (masked) rows.
-SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 195, 300)
-SWEEP_M = (0, 1, 3, 93, 94, 300, 1320, 4096)
+# The correctness sweep: every D (tile edges 31/32/63/95/96, the filters' 93
+# and 114, the calibrated 195, the largest 300) with every M (empty, one
+# chunk or less, chunk and row-range edges, the filters' 93, 114, 115 and
+# 1320, a long 4096), B cycling over 1, 5, 64. Even entries take H at storage
+# offset 1 (4 bytes off 16-byte alignment in f32), and every entry has a band
+# of zero (masked) rows.
+SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 114, 195, 300)
+SWEEP_M = (0, 1, 3, 93, 94, 114, 115, 300, 1320, 4096)
 SWEEP_B = (1, 5, 64)
 SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in enumerate(SWEEP_M)]
 
@@ -193,15 +213,15 @@ def _inputs(kname, B, M, D, dtype, g, offset=False, zero_rows=True):
 def check_kernels(kernels):
     """Phase 3a: each kernel against its plain version over the sweep, f32 and
     f64: tolerance, bitwise symmetry, two calls bitwise equal. Returns the
-    max |kernel − plain| at the main path's f32 shapes."""
+    max |kernel − plain| at each path's f32 shapes, by (kernel, shape)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    main = {"gram_reduce": (BATCH, MAIN_M, MAIN_D), "kalman_downdate": (BATCH, MAIN_D, MAIN_D)}
     errs, failures = {}, []
     for kname in ("gram_reduce", "kalman_downdate"):
         kern, ref_fn = getattr(kernels, kname), getattr(kernels, kname + "_ref")
         for dtype in (torch.float32, torch.float64):
             worst = 0.0
-            shapes = [(main[kname], False)] + [(s, i % 2 == 0) for i, s in enumerate(SWEEP)]
+            path_shapes = sorted({sh for p in PATH_SHAPES.values() for sh in p[kname]})
+            shapes = [(sh, False) for sh in path_shapes] + [(s, i % 2 == 0) for i, s in enumerate(SWEEP)]
             for (B, M, D), offset in shapes:
                 args = _inputs(kname, B, M, D, dtype, g, offset=offset)
                 try:
@@ -217,8 +237,8 @@ def check_kernels(kernels):
                 ok = (err <= TOL[dtype] * scale and torch.equal(out, out.transpose(-1, -2))
                       and torch.equal(out, out2) and torch.equal(vec, vec2) and bool(torch.isfinite(out).all()))
                 worst = max(worst, err / scale if scale > 0 else err)
-                if (B, M, D) == main[kname] and not offset:
-                    errs.setdefault(kname, err)
+                if (B, M, D) in path_shapes and not offset and dtype == torch.float32:
+                    errs.setdefault((kname, (B, M, D)), err)
                 if not ok:
                     failures.append(f"{kname} {str(dtype)[6:]} B={B} M={M} D={D} offset={offset}: err {err:.3e} "
                                     f"limit {TOL[dtype] * scale:.3e} symmetric {torch.equal(out, out.mT)} "
@@ -234,12 +254,13 @@ def check_kernels(kernels):
 def time_kernels(kernels, errs, earlier_kernel):
     """Phase 3b: device time (torch.profiler, cold L2) of each kernel, of the
     earlier simple tile kernel (checked against the plain version first), of
-    the plain version and of one library call at the main path's f32 shapes;
-    the wrapper's host time; the bound."""
+    the plain version and of one library call at each path's f32 shapes; the
+    wrapper's host time; the bound. Returns the rows by (kernel, shape)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     mem_bps, f32_flops = card_peaks(torch.cuda.get_device_name(0))
     rows = {}
-    for kname, (B, M, D) in (("gram_reduce", (BATCH, MAIN_M, MAIN_D)), ("kalman_downdate", (BATCH, MAIN_D, MAIN_D))):
+    todo = sorted({(k, sh) for p in PATH_SHAPES.values() for k, shs in p.items() for sh in shs})
+    for kname, (B, M, D) in todo:
         kern, ref_fn = getattr(kernels, kname), getattr(kernels, kname + "_ref")
         args = _inputs(kname, B, M, D, torch.float32, g, zero_rows=False)
         if kname == "gram_reduce":
@@ -268,14 +289,14 @@ def time_kernels(kernels, errs, earlier_kernel):
         k_host = host_us(lambda: kern(*args))
         kern.launches = calls_before
         e_ms, p_ms, l_ms = device_ms(earlier), device_ms(lambda: ref_fn(*args)), device_ms(lib)
-        rows[kname] = dict(max_abs_err=errs[kname], ms=k_ms, device_ms=k_ms, earlier_device_ms=e_ms,
+        rows[(kname, (B, M, D))] = dict(max_abs_err=errs[(kname, (B, M, D))], ms=k_ms, device_ms=k_ms, earlier_device_ms=e_ms,
                            plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
                            bound_by="bytes" if t_bytes >= t_ops else "operations",
                            pct_of_bound=100.0 * bound / k_ms, host_us_per_call=k_host,
                            bytes=bytes_, flops=flops)
         print(f"[time] {kname} f32 B={B} M={M} D={D}, device time, cold L2: kernel {k_ms:.5f} ms "
               f"({100 * bound / k_ms:.1f}% of bound), earlier kernel {e_ms:.5f} ms, plain {p_ms:.5f} ms, "
-              f"library {l_ms:.5f} ms, bound {bound:.5f} ms ({rows[kname]['bound_by']}; "
+              f"library {l_ms:.5f} ms, bound {bound:.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}; "
               f"{bytes_ / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP)")
         print(f"[time] {kname} its kernels: " + ", ".join(f"{k.split('<')[0].split()[-1]} {v:.5f} ms"
                                                         for k, v in k_parts.items()))
@@ -283,66 +304,125 @@ def time_kernels(kernels, errs, earlier_kernel):
     return rows
 
 
-def drive_main_path():
-    """Phase 4: the port's main path at the bench's full width; returns (n_frames, info)."""
+class PathSpec(NamedTuple):
+    """One path of the filter that the script drives at full width."""
+    name: str
+    config: str             # function of ov_plane_tpu_torch.utils.config
+    scene: str              # attribute of ov_plane_tpu_torch.sim.simulator holding the scene's path
+    per_frame: dict         # kernel launches per stepped frame
+    sync_start: int         # first of the 9 steps checked for host synchronizations (then profiled from)
+    ref_frames: int         # frames of the f64 CPU reference
+    n_frames: int | None = None  # stepped frames (None: the whole scene)
+
+
+PATHS = (
+    # Phase 4: the point path on the bench scene (slice 1), cut to its first
+    # 160 frames: with all 287 the whole script took 990.5 s of its 1200 s
+    # limit on an H100 whose host ran at the slow end of a 1.5x spread seen
+    # between calls (PERF.md §6); 160 frames leave room for a host 1.4x
+    # slower than that.
+    PathSpec("point", "slice_config", "SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 1}, 4, 30, 160),
+    # Phase 5: the plane path on the M-PL scene (slice 3), every frame: the
+    # downdate closes the classic update, the grouped plane update and both
+    # delayed-init candidates; the first plane state appears at frame 20.
+    PathSpec("plane", "plane_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 4}, 18, 60),
+)
+PLANE_COUNTERS = ("n_planes", "n_plane_init", "n_plane_constraints", "n_plane_merges", "n_plane_dropped")
+
+
+def _setup(spec: PathSpec, device, dtype):
+    from ov_plane_tpu_torch.models.manager import VioEngine
+    from ov_plane_tpu_torch.sim import simulator
+    from ov_plane_tpu_torch.utils import config
+
+    cfg = getattr(config, spec.config)()
+    truth = simulator.load_scene(getattr(simulator, spec.scene), dtype=dtype, device=device)
+    sim = simulator.apply_noise(truth, simulator.noise_params(cfg), BATCH,
+                                torch.Generator(device=device).manual_seed(SEED))
+    return cfg, truth, sim, VioEngine.from_config(cfg, device=device)
+
+
+def _fresh(eng, cfg, s, b, device, dt):
+    from ov_plane_tpu_torch.models.feature_bank import FeatureBank
+    from ov_plane_tpu_torch.models.manager import init_state_with_gt
+
+    st = init_state_with_gt(eng, cfg, t0=s.cam_t_imu[0].expand(b), q0=s.gt_q[0].expand(b, 4),
+                            p0=s.gt_p[0].expand(b, 3), v0=s.gt_v[0].expand(b, 3),
+                            bg0=s.gt_bg_cam[:b, 0], ba0=s.gt_ba_cam[:b, 0], dtype=dt, device=device)
+    return st, FeatureBank.create(cfg.tpu.max_features, eng.layout.max_clones, b, dt, device)
+
+
+def cpu_run(cfg, sim, n_frames: int, dtype=torch.float64):
+    """The first two streams of the card's noisy scene ``sim`` through the
+    port on the CPU (plain kernel versions) in ``dtype``; returns the outputs."""
+    from ov_plane_tpu_torch.models.manager import VioEngine, run_sequence
+
+    noisy = ("imu_w", "imu_a", "obs_uv", "gt_bg", "gt_ba", "gt_bg_cam", "gt_ba_cam")
+    sim_cpu = sim._replace(**{k: v[:2].to(dtype).cpu() for k, v in sim._asdict().items() if k in noisy},
+                           **{k: v.to(dtype).cpu() if v.is_floating_point() else v.cpu()
+                              for k, v in sim._asdict().items()
+                              if isinstance(v, torch.Tensor) and k not in noisy})
+    eng = VioEngine.from_config(cfg, device="cpu")
+    st, bk = _fresh(eng, cfg, sim_cpu, 2, "cpu", dtype)
+    return run_sequence(eng, st, bk, sim_cpu, imu_window=cfg.tpu.max_imu_per_frame, n_frames=n_frames)[2]
+
+
+def drive_path(spec: PathSpec):
+    """Phases 4 and 5: one path of the port at full width, B streams in f32
+    over the scene; returns (n_frames, launches, info)."""
     from ov_plane_tpu_torch import convert  # noqa: F401  (package import check)
     from ov_plane_tpu_torch.eval.metrics import rmse_nees
-    from ov_plane_tpu_torch.models.feature_bank import FeatureBank
-    from ov_plane_tpu_torch.models.manager import VioEngine, init_state_with_gt, run_sequence
+    from ov_plane_tpu_torch.models.manager import run_sequence
     from ov_plane_tpu_torch.ops import kernels
-    from ov_plane_tpu_torch.sim.simulator import apply_noise, load_scene, noise_params
-    from ov_plane_tpu_torch.utils.config import slice_config
 
-    cfg = slice_config()
+    tag = f"[{spec.name}]"
     dev, dtype = "cuda", torch.float32
     t = time.time()
-    truth = load_scene(dtype=dtype, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    sim = apply_noise(truth, noise_params(cfg), BATCH, gen)
-    eng = VioEngine.from_config(cfg, device=dev)
-    n_frames = sim.cam_t.shape[0] - 1
-    print(f"[main] scene {n_frames + 1} frames, {sim.imu_t.shape[0]} IMU samples, "
-          f"{truth.obs_id.shape[1]} observation slots; D={eng.layout.dim}; B={BATCH}; "
-          f"set-up {time.time() - t:.2f} s")
+    cfg, truth, sim, eng = _setup(spec, dev, dtype)
+    total = sim.cam_t.shape[0] - 1
+    n_frames = total if spec.n_frames is None else min(spec.n_frames, total)
+    window = cfg.tpu.max_imu_per_frame
+    print(f"{tag} scene {total + 1} frames, {sim.imu_t.shape[0]} IMU samples, {truth.obs_id.shape[1]} observation "
+          f"slots; D={eng.layout.dim}; B={BATCH}; {n_frames} frames stepped; set-up {time.time() - t:.2f} s")
 
-    def fresh(s, b, device, dt):
-        st = init_state_with_gt(eng, cfg, t0=s.cam_t_imu[0].expand(b), q0=s.gt_q[0].expand(b, 4),
-                                p0=s.gt_p[0].expand(b, 3), v0=s.gt_v[0].expand(b, 3),
-                                bg0=s.gt_bg_cam[:b, 0], ba0=s.gt_ba_cam[:b, 0], dtype=dt, device=device)
-        return st, FeatureBank.create(cfg.tpu.max_features, eng.layout.max_clones, b, dt, device)
-
-    # Warm-up (library handles, allocator), then the step's synchronizations
-    # are counted over a few frames that include updates, then the counted run.
-    state, bank = fresh(sim, BATCH, dev, dtype)
-    state, bank, _ = run_sequence(eng, state, bank, sim, imu_window=cfg.tpu.max_imu_per_frame, n_frames=3)
+    # Warm-up (library handles, allocator) up to the checked window, then 9
+    # steps with host synchronizations counted (warnings from
+    # torch.cuda.set_sync_debug_mode); the state after them is kept for the
+    # profile. Then the timed run from a fresh state.
+    state, bank = _fresh(eng, cfg, sim, BATCH, dev, dtype)
+    s0, s1 = spec.sync_start, spec.sync_start + 9
+    t = time.time()
+    state, bank, _ = run_sequence(eng, state, bank, sim, imu_window=window, n_frames=s0 - 1)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            run_sequence(eng, state, bank, sim, imu_window=cfg.tpu.max_imu_per_frame, n_frames=9)
+            snapshot = run_sequence(eng, state, bank, sim, imu_window=window, n_frames=9, start=s0)[:2]
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
     syncs = sorted({str(w.message).splitlines()[0] for w in caught
                     if "synchronizing CUDA operation" in str(w.message)})
-    print(f"[main] host synchronizations inside 9 steps: {len(syncs)} {syncs[:5]}")
+    print(f"{tag} host synchronizations inside steps {s0}-{s1 - 1}: {len(syncs)} {syncs[:5]} "
+          f"(warm-up and check {time.time() - t:.1f} s)")
     if syncs:
         raise RuntimeError("the step synchronizes with the host")
-    state, bank = fresh(sim, BATCH, dev, dtype)
+
+    state, bank = _fresh(eng, cfg, sim, BATCH, dev, dtype)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t = time.time()
-    state, bank, outs = run_sequence(eng, state, bank, sim, imu_window=cfg.tpu.max_imu_per_frame)
+    state, bank, outs = run_sequence(eng, state, bank, sim, imu_window=window, n_frames=n_frames)
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = {"gram_reduce": kernels.gram_reduce.launches,
-                "kalman_downdate": kernels.kalman_downdate.launches}
-    print(f"[main] {BATCH}x{n_frames} stream-frames in {wall:.3f} s: "
+    launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
+    print(f"{tag} {BATCH}x{n_frames} stream-frames in {wall:.3f} s: "
           f"{BATCH * n_frames / wall:.1f} stream-frames/s ({n_frames / wall:.2f} frames/s per stream)")
-    print(f"[main] launches: {launches}")
+    print(f"{tag} launches: {launches}")
     for k, n in launches.items():
-        if n != n_frames:
-            raise RuntimeError(f"{k} launched {n} times over {n_frames} frames")
+        if n != spec.per_frame[k] * n_frames:
+            raise RuntimeError(f"{k} launched {n} times over {n_frames} frames, not {spec.per_frame[k]} per frame")
 
     for name, v in outs._asdict().items():
         if v.is_floating_point() and not torch.isfinite(v).all():
@@ -350,86 +430,140 @@ def drive_main_path():
     if not (torch.isfinite(state.cov).all() and torch.isfinite(state.imu).all()):
         raise RuntimeError("non-finite final state")
     m = rmse_nees(outs.q.double(), outs.p.double(), outs.cov_diag_imu[..., 0:3].double(),
-                  outs.cov_diag_imu[..., 3:6].double(), sim.gt_q[1:].double(), sim.gt_p[1:].double())
+                  outs.cov_diag_imu[..., 3:6].double(), sim.gt_q[1:n_frames + 1].double(),
+                  sim.gt_p[1:n_frames + 1].double())
     rmse0 = m["rmse_pos"][0].item()
-    print(f"[main] stream 0: rmse_pos={rmse0:.4f} m rmse_ori={m['rmse_ori_deg'][0].item():.4f} deg; "
+    print(f"{tag} stream 0: rmse_pos={rmse0:.4f} m rmse_ori={m['rmse_ori_deg'][0].item():.4f} deg; "
           f"mean over {BATCH} streams: rmse_pos={m['rmse_pos'].mean().item():.4f} m "
           f"rmse_ori={m['rmse_ori_deg'].mean().item():.4f} deg "
           f"nees_ori={m['nees_ori'].mean().item():.3f} nees_pos={m['nees_pos'].mean().item():.3f}; "
           f"msckf features used per frame (mean) {outs.n_msckf_used.float().mean().item():.2f}")
     if not rmse0 < 0.5:
         raise RuntimeError(f"stream 0 position RMSE {rmse0:.3f} m is not below 0.5 m")
+    info = dict(stream_frames_per_s=BATCH * n_frames / wall, wall_s=wall, n_frames=n_frames,
+                eng=eng, cfg=cfg, sim=sim, snapshot=snapshot)
+    if spec.name == "plane":
+        info.update(check_planes(tag, state, outs, truth))
 
     # Reference on a small input: two of the streams through the port on the
     # CPU in f64 (plain kernel versions), against the card's f32 run.
-    n_ref = 30
-    sim_cpu = sim._replace(**{k: v[:2].double().cpu() for k, v in sim._asdict().items()
-                              if k in ("imu_w", "imu_a", "obs_uv", "gt_bg", "gt_ba", "gt_bg_cam", "gt_ba_cam")},
-                           **{k: v.double().cpu() if v.is_floating_point() else v.cpu()
-                              for k, v in sim._asdict().items()
-                              if k in ("imu_t", "cam_t", "cam_t_imu", "obs_id", "obs_plane", "gt_q", "gt_p", "gt_v")})
-    eng_cpu = VioEngine.from_config(cfg, device="cpu")
-    st_c, bk_c = fresh(sim_cpu, 2, "cpu", torch.float64)
-    _, _, ref = run_sequence(eng_cpu, st_c, bk_c, sim_cpu, imu_window=cfg.tpu.max_imu_per_frame, n_frames=n_ref)
+    n_ref = min(spec.ref_frames, n_frames)
+    t = time.time()
+    ref = cpu_run(cfg, sim, n_ref)
     dp = (outs.p[:2, :n_ref].double().cpu() - ref.p).abs().max().item()
     dq = (outs.q[:2, :n_ref].double().cpu() - ref.q).abs().max().item()
-    print(f"[main] card f32 vs CPU f64, 2 streams x {n_ref} frames: max|dp|={dp:.3e} m max|dq|={dq:.3e}")
+    print(f"{tag} card f32 vs CPU f64 ({time.time() - t:.1f} s on the CPU), 2 streams x {n_ref} frames: "
+          f"max|dp|={dp:.3e} m max|dq|={dq:.3e}")
+    compare_counters(tag, outs, ref, n_ref, ("n_msckf_used",) + (PLANE_COUNTERS if spec.name == "plane" else ()))
     if not (dp < 1e-2 and dq < 1e-3):
         raise RuntimeError("the card's run disagrees with the CPU f64 reference")
-    return n_frames, launches, dict(stream_frames_per_s=BATCH * n_frames / wall, wall_s=wall)
+    return n_frames, launches, info
 
 
-def profile_frames(frame_wall_ms: float, n: int = 5):
-    """Where a frame's time goes (torch.profiler over a short steady window):
-    device kernel time and kernel count per frame, the device's idle share of
-    an unprofiled frame (frame_wall_ms, from the main run), and the host time
-    of each stage of the step (inflated by the profiler's own overhead)."""
-    from ov_plane_tpu_torch.models.feature_bank import FeatureBank
-    from ov_plane_tpu_torch.models.manager import STAGES, VioEngine, init_state_with_gt, run_sequence
-    from ov_plane_tpu_torch.sim.simulator import apply_noise, load_scene, noise_params
-    from ov_plane_tpu_torch.utils.config import slice_config
+def check_planes(tag, state, outs, truth):
+    """The plane path's own checks: plane states were made and used, and every
+    active CP lies within 0.10 m of a true plane CP (tests/test_e2e_planes.py)."""
+    n_planes = outs.n_planes.max().item()
+    n_constraints = outs.n_plane_constraints.sum().item()
+    dropped = outs.n_plane_dropped.sum().item()
+    print(f"{tag} in-state planes at most {n_planes} per stream; plane constraint updates {n_constraints} "
+          f"({n_constraints / outs.n_planes.shape[0]:.1f} per stream); delayed inits "
+          f"{outs.n_plane_init.sum().item()} (counted before the 2 s delay gate, as in JAX); "
+          f"n_plane_dropped summed {dropped}")
+    if n_planes == 0 or n_constraints == 0:
+        raise RuntimeError("no plane state or no plane constraint update on any stream")
+    cp_est = state.plane_cp[state.plane_active].double()
+    if cp_est.shape[0]:
+        dist = torch.cdist(cp_est, truth.plane_cp.double()).min(dim=1).values
+        print(f"{tag} {cp_est.shape[0]} active CPs at the end; distance to the nearest true CP: "
+              f"max {dist.max().item():.4f} m, mean {dist.mean().item():.4f} m")
+        if not dist.max().item() < 0.10:
+            raise RuntimeError("an active plane CP lies farther than 0.10 m from every true plane CP")
+    else:
+        print(f"{tag} no active CP at the end")
+    return dict(n_plane_dropped=dropped, n_plane_constraints=n_constraints)
+
+
+def compare_counters(tag, outs, ref, n_ref, names):
+    """Per-frame counters (features that passed the χ² gate, the plane
+    counters) of the card's f32 run against the CPU f64 run; where f32 takes
+    a gate that f64 does not (or the reverse), the frame and the counter are
+    printed."""
+    for name in names:
+        card = getattr(outs, name)[:2, :n_ref].cpu()
+        cpu = getattr(ref, name)
+        diff = (card != cpu).nonzero().tolist()
+        print(f"{tag} {name} per frame: card == CPU f64 on {card.numel() - len(diff)} of {card.numel()} "
+              f"stream-frames; totals card {card.sum().item()} CPU {cpu.sum().item()}")
+        for b, f in diff[:10]:
+            print(f"{tag}   gate flipped: stream {b} frame {f + 1} {name} card {card[b, f].item()} "
+                  f"CPU f64 {cpu[b, f].item()}")
+
+
+def _raw_events(prof):
+    """(name, on the device, start ns, duration ns) of every event of a
+    profile, read from the profiler's raw results: building ``prof.events()``
+    takes minutes for a few frames of ~60k kernels each."""
+    return [(e.name(), e.device_type().name == "CUDA", e.start_ns(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events()]
+
+
+def profile_frames(spec: PathSpec, info: dict, n: int = 5):
+    """Where a frame's time goes (torch.profiler over the n frames after the
+    checked window, from the state the path's run kept): device kernel time
+    and kernel count per frame, the device's idle share of an unprofiled
+    frame (from the path's run), and each stage's host time (inflated by the
+    profiler's own overhead) and kernel launches."""
+    from ov_plane_tpu_torch.models.manager import STAGES, run_sequence
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = slice_config()
-    truth = load_scene(dtype=torch.float32, device="cuda")
-    sim = apply_noise(truth, noise_params(cfg), BATCH, torch.Generator(device="cuda").manual_seed(SEED))
-    eng = VioEngine.from_config(cfg, device="cuda")
-    st = init_state_with_gt(eng, cfg, t0=sim.cam_t_imu[0].expand(BATCH), q0=sim.gt_q[0].expand(BATCH, 4),
-                            p0=sim.gt_p[0].expand(BATCH, 3), v0=sim.gt_v[0].expand(BATCH, 3),
-                            bg0=sim.gt_bg_cam[:, 0], ba0=sim.gt_ba_cam[:, 0], dtype=torch.float32)
-    bk = FeatureBank.create(cfg.tpu.max_features, eng.layout.max_clones, BATCH, torch.float32, "cuda")
-    st, bk, _ = run_sequence(eng, st, bk, sim, imu_window=cfg.tpu.max_imu_per_frame, n_frames=10)
+    tag = f"[profile {spec.name}]"
+    eng, cfg, sim = info["eng"], info["cfg"], info["sim"]
+    st, bk = info["snapshot"]
+    first = spec.sync_start + 9
+    frame_wall_ms = 1e3 * info["wall_s"] / info["n_frames"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.time()
-        run_sequence(eng, st, bk, sim, imu_window=cfg.tpu.max_imu_per_frame, n_frames=n)
+        run_sequence(eng, st, bk, sim, imu_window=cfg.tpu.max_imu_per_frame, n_frames=n, start=first)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t) * 1e3
-    # Raw events, not key_averages(): a stage's host range and its device
-    # annotation share one name and would be merged into one average.
-    events = prof.events()
-    kern = [e for e in events if e.device_type.name == "CUDA" and e.name not in STAGES]
-    busy_ms = sum(e.device_time_total for e in kern) / 1e3 / n
+    t = time.time()
+    events = _raw_events(prof)
+    # A stage's host range and its device annotation share one name: the
+    # kernels are the device events with other names.
+    kern = [(name, dur) for name, dev, _, dur in events if dev and name not in STAGES]
+    busy_ms = sum(dur for _, dur in kern) / 1e6 / n
     if busy_ms <= 0:
-        print("[profile] the profiler recorded no device time: device idle share not measured")
+        print(f"{tag} the profiler recorded no device time: device idle share not measured")
         return
-    print(f"[profile] per frame over {n} frames: {len(kern) / n:.0f} kernels, device busy {busy_ms:.2f} ms; "
+    print(f"{tag} frames {first}-{first + n - 1}: {len(kern) / n:.0f} kernels per frame, device busy {busy_ms:.2f} ms; "
           f"unprofiled frame {frame_wall_ms:.2f} ms -> device idle {100 * (1 - busy_ms / frame_wall_ms):.1f}%; "
           f"profiled frame {wall_ms / n:.2f} ms")
+    spans = sorted((t0, t0 + dur, name) for name, dev, t0, dur in events if name in STAGES and not dev)
     host = dict.fromkeys(STAGES, 0.0)
-    for e in events:
-        if e.name in host and e.device_type.name == "CPU":
-            host[e.name] += e.cpu_time_total / 1e3 / n
-    print("[profile] host ms per frame by stage (profiled): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    for s0, s1, name in spans:
+        host[name] += (s1 - s0) / 1e6 / n
+    launches = dict.fromkeys(STAGES, 0)
+    starts = [s0 for s0, _, _ in spans]
+    for name, dev, t0, _ in events:
+        if not dev and name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            i = bisect.bisect_right(starts, t0) - 1
+            if i >= 0 and t0 <= spans[i][1]:
+                launches[spans[i][2]] += 1
+    print(f"{tag} host ms per frame by stage (profiled): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    print(f"{tag} kernel launches per frame by stage: " + ", ".join(f"{k} {v / n:.0f}" for k, v in launches.items()))
     by_name = {}
-    for e in kern:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.device_time_total, c + 1)
-    for name, (t, c) in sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]:
-        print(f"[profile]   {t / 1e3 / n:8.3f} ms/frame  x{c // n:5d}  {name[:80]}")
+    for name, dur in kern:
+        tot, c = by_name.get(name, (0, 0))
+        by_name[name] = (tot + dur, c + 1)
+    for name, (tot, c) in sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:6]:
+        print(f"{tag}   {tot / 1e6 / n:8.3f} ms/frame  x{c // n:5d}  {name[:80]}")
+    print(f"{tag} events read in {time.time() - t:.1f} s")
 
 
 def main() -> int:
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card", file=sys.stderr)
         return 2
@@ -453,8 +587,11 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     rows = time_kernels(kernels, check_kernels(kernels), earlier_kernel)
-    n_frames, launches, info = drive_main_path()
-    profile_frames(1e3 * info["wall_s"] / n_frames)
+    results = {}
+    for spec in PATHS:
+        n_frames, launches, info = drive_path(spec)
+        profile_frames(spec, info)
+        results[spec.name] = (n_frames, launches, info)
 
     meta = {
         "gram_reduce": ("ov_plane_tpu_torch/csrc/gram_reduce.cu",
@@ -464,9 +601,17 @@ def main() -> int:
     }
     out = []
     for name, (source, replaces) in meta.items():
+        # Top level: the plane path (this slice's path) at LEAD's shape; per
+        # path: its launches in its run and each of its shapes' numbers.
+        paths = {p: dict(launches=results[p][1][name], frames=results[p][0],
+                         shapes=[dict(B=B, M=M, D=D, **rows[(name, (B, M, D))]) for B, M, D in shs[name]])
+                 for p, shs in PATH_SHAPES.items()}
         out.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                        launches=launches[name], **rows[name]))
-    print(f"[main] stream-frames/s {info['stream_frames_per_s']:.2f}")
+                        launches=results["plane"][1][name], shape=list(LEAD[name]), **rows[(name, LEAD[name])],
+                        paths=paths))
+    for p, (n_frames, launches, info) in results.items():
+        print(f"[{p}] stream-frames/s {info['stream_frames_per_s']:.2f} over {n_frames} frames")
+    print(f"[total] the whole script took {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

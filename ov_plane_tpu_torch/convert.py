@@ -3,8 +3,12 @@
 The JAX package's state, feature bank and simulator data are pytrees of
 arrays. Handed over as mappings of numpy arrays (field name -> array), these
 functions build the port's [B, ...] containers: per-stream mappings are
-stacked along a new leading stream dimension. Fields the port does not hold
-yet (SLAM anchors, ground-truth injection) are ignored.
+stacked along a new leading stream dimension. A state carries its plane
+slots (``plane_cp``, ``plane_cp_fej``, ``plane_id``, ``plane_active``) and
+a bank its features' plane ids; simulator data carries the per-observation
+plane ids (``obs_plane``) and, for a plane scene, the true plane CPs. Fields
+the port does not hold yet (SLAM anchors, ground-truth injection) are
+ignored.
 """
 
 from __future__ import annotations

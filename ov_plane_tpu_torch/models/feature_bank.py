@@ -68,6 +68,23 @@ def clear_clone_column(bank: FeatureBank, slot: torch.Tensor) -> FeatureBank:
     )
 
 
+def topk_first_index(score: torch.Tensor, k: int):
+    """Top-k of integer scores [..., F] along the last dim, ties broken
+    towards the lower index (``jax.lax.top_k`` order): the key
+    score·F + (F−1−idx) is unique."""
+    F = score.shape[-1]
+    idx = torch.arange(F, device=score.device)
+    key = score.to(torch.int64) * F + (F - 1 - idx)
+    _, sel = torch.topk(key, k, dim=-1, largest=True, sorted=True)
+    return score.gather(-1, sel), sel
+
+
+def first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last dim (0 where there is none),
+    as ``jnp.argmax`` gives it on a bool array."""
+    return torch.argmax(mask.to(torch.int32), dim=-1)
+
+
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [B, N, ...] gathered at idx [B, J] along dim 1 -> [B, J, ...]."""
     tail = x.shape[2:]

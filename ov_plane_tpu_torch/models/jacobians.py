@@ -5,14 +5,15 @@ without calibration columns. One feature gives a fixed-shape system over the
 K clone slots:
 
     rows [0 : 2K)    whitened reprojection residuals (2 per clone slot)
-    rows [2K : 3K)   point-on-plane rows, all zero until the plane slice
-                     of the port fills them (the JAX layout is kept, so the
-                     stacked update has the same row count M·(3K−3))
+    rows [2K : 3K)   whitened point-on-plane residuals (1 per observation,
+                     only for a feature on a plane, UpdaterHelper.cpp:448-512)
 
-H_x [.., 3K, D] is full width over the state layout, H_f [.., 3K, 6] holds
-d/d p_FinG in columns 0:3. FEJ points follow the reference: clone FEJ poses
-and the feature FEJ value in the Jacobians, current estimates in the
-residuals and in the distortion Jacobian.
+H_x [.., 3K, D] is full width over the state layout; H_f [.., 3K, 6] holds
+d/d p_FinG in columns 0:3 and d/d cp in columns 3:6 for a plane that is not
+in the state (a plane in the state takes its three state columns in H_x).
+FEJ points follow the reference: clone FEJ poses and the feature / plane FEJ
+values in the Jacobians, current estimates in the residuals and in the
+distortion Jacobian.
 """
 
 from __future__ import annotations
@@ -63,12 +64,17 @@ def clone_set_from_state(state) -> CloneSet:
 
 
 def feature_jacobian_full(lay: StateLayout, opts: JacobianOptions, clones: CloneSet,
-                          uv, obs_mask, p_FinG, p_FinG_fej, sigma_px):
+                          uv, obs_mask, p_FinG, p_FinG_fej, sigma_px,
+                          cp=None, cp_fej=None, has_plane=None, plane_in_state=None, plane_slot=None,
+                          sigma_c=0.05):
     """Stacked whitened systems of [B, M] features.
 
     uv [B, M, K, 2] measured pixels, obs_mask [B, M, K], p_FinG / p_FinG_fej
-    [B, M, 3]. Returns (H_x [B, M, 3K, D], H_f [B, M, 3K, 6], res [B, M, 3K],
-    row_mask [B, M, 3K]).
+    [B, M, 3]. With ``has_plane`` [B, M] given, the point-on-plane rows are
+    filled for the features on a plane: cp / cp_fej [B, M, 3] the plane's CP,
+    plane_in_state [B, M] and plane_slot [B, M] int its state slot, sigma_c a
+    float or [B, M]. Returns (H_x [B, M, 3K, D], H_f [B, M, 3K, 6],
+    res [B, M, 3K], row_mask [B, M, 3K]).
     """
     B, M, K = obs_mask.shape
     D = lay.dim
@@ -121,4 +127,42 @@ def feature_jacobian_full(lay: StateLayout, opts: JacobianOptions, clones: Clone
     res[:, :, :2 * K] = r.reshape(B, M, 2 * K)
     row_mask = torch.zeros(B, M, 3 * K, dtype=torch.bool, device=dev)
     row_mask[:, :, :2 * K] = obs_mask.repeat_interleave(2, dim=-1)
+    if has_plane is None:
+        return H_x, H_f, res, row_mask
+
+    # Point-on-plane rows (UpdaterHelper.cpp:448-512).
+    if isinstance(sigma_c, torch.Tensor):
+        white_c = (1.0 / sigma_c).expand(B, M)
+    else:
+        white_c = torch.full((B, M), 1.0 / sigma_c, dtype=dtype, device=dev)
+    d_cur = torch.linalg.vector_norm(cp, dim=-1)
+    d_cur = torch.where(d_cur < 1e-9, torch.full_like(d_cur, 1e-9), d_cur)
+    n_cur = cp / d_cur[..., None]
+    r_plane = white_c * (0.0 - (torch.sum(n_cur * p_FinG, dim=-1) - d_cur))       # [B, M]
+    if opts.do_fej:
+        pf_j = p_FinG_fej
+        d_j = torch.linalg.vector_norm(cp_fej, dim=-1)
+        d_j = torch.where(d_j < 1e-9, torch.full_like(d_j, 1e-9), d_j)
+        n_j = cp_fej / d_j[..., None]
+    else:
+        pf_j, d_j, n_j = p_FinG, d_cur, n_cur
+    npf = torch.sum(n_j * pf_j, dim=-1)
+    H_cp_row = (white_c / d_j)[..., None] * (pf_j - npf[..., None] * n_j - d_j[..., None] * n_j)  # [B, M, 3]
+    H_f_plane_row = white_c[..., None] * n_j
+
+    rows_mask = obs_mask & has_plane[..., None]                               # [B, M, K]
+    mrow = rows_mask.to(dtype)[..., None]
+    res[:, :, 2 * K:] = r_plane[..., None] * rows_mask.to(dtype)
+    row_mask[:, :, 2 * K:] = rows_mask
+    H_f[:, :, 2 * K:, 0:3] = H_f_plane_row[:, :, None, :] * mrow
+    in_state = (plane_in_state & has_plane)[..., None, None]                 # [B, M, 1, 1]
+    H_cp = H_cp_row[:, :, None, :] * mrow                                    # [B, M, K, 3]
+    H_f[:, :, 2 * K:, 3:6] = torch.where(in_state, 0.0, H_cp)
+    # The plane state's three columns, by a mask over D (the slot is per feature).
+    col0 = lay.plane_base + 3 * plane_slot.to(torch.int64)                   # [B, M]
+    j = torch.arange(D, device=dev)
+    k_of = (j - col0[..., None]).clamp(0, 2)                                 # [B, M, D]
+    in_cols = (j >= col0[..., None]) & (j < col0[..., None] + 3)
+    spread = H_cp.gather(-1, k_of[:, :, None, :].expand(B, M, K, D))        # [B, M, K, D]
+    H_x[:, :, 2 * K:, :] = torch.where(in_state & in_cols[:, :, None, :], spread, 0.0)
     return H_x, H_f, res, row_mask

@@ -1,8 +1,9 @@
-"""Batched MSCKF update of B streams (the point path).
+"""Batched MSCKF update of B streams.
 
-Counterpart of ``ov_plane_tpu/models/msckf.py`` without the plane rows:
+Counterpart of ``ov_plane_tpu/models/msckf.py``:
 
-  gathered features → triangulation → stacked Jacobians → per-feature
+  gathered features → triangulation → stacked Jacobians (with the
+  point-on-plane rows of features whose plane is in the state) → per-feature
   Householder nullspace projection → per-feature χ² gate (95% table ×
   multiplier) → stacked rows → compression → one EKF update per stream.
 
@@ -30,19 +31,25 @@ class MsckfOptions(NamedTuple):
     tri: TriangulationOptions = TriangulationOptions()
     sigma_px: float = 1.0
     chi2_multipler: float = 5.0
+    sigma_c: float = 0.05
+    use_plane_constraint: bool = False
     use_info_compression: bool = False
 
 
 @functools.lru_cache(maxsize=8)
-def _chi2_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+def chi2_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """The χ² table on the device, copied once (not inside every update)."""
     return torch.as_tensor(CHI2_095_TABLE, dtype=dtype, device=device)
 
 
-def msckf_update(state: VioState, opts: MsckfOptions, sel_uv, sel_uvn, sel_mask):
+def msckf_update(state: VioState, opts: MsckfOptions, sel_uv, sel_uvn, sel_mask,
+                 sel_plane_cp=None, sel_plane_cp_fej=None, sel_has_plane=None, sel_plane_in_state=None,
+                 sel_plane_slot=None):
     """sel_uv / sel_uvn [B, M, K, 2], sel_mask [B, M, K] (already ANDed with
-    the selection validity). Returns (new_state, used [B, M], p_FinG [B, M, 3],
-    tri_ok [B, M])."""
+    the selection validity). The plane arguments [B, M] (CPs [B, M, 3]) give
+    each feature's plane; with ``opts.use_plane_constraint`` the features
+    with ``sel_has_plane`` get point-on-plane rows. Returns (new_state,
+    used [B, M], p_FinG [B, M, 3], tri_ok [B, M])."""
     lay = state.layout
     K, D = lay.max_clones, lay.dim
     B, M = sel_mask.shape[:2]
@@ -53,7 +60,14 @@ def msckf_update(state: VioState, opts: MsckfOptions, sel_uv, sel_uvn, sel_mask)
     p_f, tri_ok = triangulate(sel_uvn, sel_mask, clones.R_GtoC, clones.p_CinG, opts.tri)
 
     # FEJ feature value = the fresh triangulation (UpdaterMSCKF).
-    H_x, H_f, res, _ = feature_jacobian_full(lay, opts.jac, clones, sel_uv, sel_mask, p_f, p_f, opts.sigma_px)
+    use_plane = None
+    plane = {}
+    if sel_has_plane is not None:
+        use_plane = sel_has_plane & opts.use_plane_constraint
+        plane = dict(cp=sel_plane_cp, cp_fej=sel_plane_cp_fej, has_plane=use_plane,
+                     plane_in_state=sel_plane_in_state, plane_slot=sel_plane_slot, sigma_c=opts.sigma_c)
+    H_x, H_f, res, _ = feature_jacobian_full(lay, opts.jac, clones, sel_uv, sel_mask, p_f, p_f, opts.sigma_px,
+                                             **plane)
     okf = tri_ok.to(dtype)
     H_x = H_x * okf[..., None, None]
     H_f = H_f * okf[..., None, None]
@@ -69,8 +83,8 @@ def msckf_update(state: VioState, opts: MsckfOptions, sel_uv, sel_uvn, sel_mask)
     L = ekf.cholesky_or_nan(S)
     chi2 = (res2[..., None, :] @ torch.cholesky_solve(res2[..., None], L))[..., 0, 0]
     n_obs = sel_mask.sum(dim=-1)
-    dof_rows = 2 * n_obs - 3
-    table = _chi2_table(dtype, S.device)
+    dof_rows = 2 * n_obs - 3 if use_plane is None else torch.where(use_plane, 3 * n_obs, 2 * n_obs) - 3
+    table = chi2_table(dtype, S.device)
     gate = chi2 <= opts.chi2_multipler * table[dof_rows.clamp(1, table.shape[0] - 1)]
     passed = tri_ok & gate & (n_obs >= 2)
 

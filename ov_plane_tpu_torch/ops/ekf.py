@@ -1,6 +1,6 @@
 """EKF covariance operations on the static state layout, for B streams.
 
-Counterpart of ``ov_plane_tpu/ops/ekf.py`` (the slice's part of it). The
+Counterpart of ``ov_plane_tpu/ops/ekf.py`` (the parts the filter runs). The
 covariance is one ``[B, D, D]`` tensor over a fixed layout; slots are
 recycled by zeroing rows/columns, and masked measurement rows are all-zero
 rows of H with zero residual and unit noise, which leave every result
@@ -52,21 +52,25 @@ def zero_slot(cov: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor
     return cov * keep[:, None, :] * keep[:, :, None]
 
 
+def write_slot(cov: torch.Tensor, start: torch.Tensor, cross: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
+    """Write a c-wide slot at per-stream start [B]: its columns take cross
+    [B, D, c], its rows crossᵀ, its diagonal block blk [B, c, c]."""
+    B, D, _ = cov.shape
+    c = blk.shape[-1]
+    in_slot = _slot_mask(D, start, c)                                    # [B, D]
+    k_of = (torch.arange(D, device=cov.device)[None, :] - start[:, None]).clamp(0, c - 1)
+    col_sel = cross.gather(2, k_of[:, None, :].expand(B, D, D))          # cross[b, i, k(j)]
+    cov = torch.where(in_slot[:, None, :], col_sel, cov)
+    cov = torch.where(in_slot[:, :, None], col_sel.transpose(1, 2), cov)
+    blk_rows = blk.gather(1, k_of[:, :, None].expand(B, D, c))
+    blk_sel = blk_rows.gather(2, k_of[:, None, :].expand(B, D, D))
+    return torch.where(in_slot[:, :, None] & in_slot[:, None, :], blk_sel, cov)
+
+
 def clone_block(cov: torch.Tensor, src: int, dst: torch.Tensor, size: int) -> torch.Tensor:
     """Stochastic cloning: copy rows/cols [src, src+size) into slot dst [B]
     (StateHelper::clone). The dst slot must be zero beforehand."""
-    B, D, _ = cov.shape
-    col = cov[:, :, src:src + size]                             # [B, D, size]
-    blk = cov[:, src:src + size, src:src + size]                # [B, size, size]
-    in_slot = _slot_mask(D, dst, size)                          # [B, D]
-    k_of = (torch.arange(D, device=cov.device)[None, :] - dst[:, None]).clamp(0, size - 1)
-    col_sel = col.gather(2, k_of[:, None, :].expand(B, D, D))   # [b,i,j] = col[b,i,k(j)]
-    cov = torch.where(in_slot[:, None, :], col_sel, cov)
-    row_sel = col.transpose(1, 2).gather(1, k_of[:, :, None].expand(B, D, D))  # col[b,j,k(i)]
-    cov = torch.where(in_slot[:, :, None], row_sel, cov)
-    blk_rows = blk.gather(1, k_of[:, :, None].expand(B, D, size))              # [b,i,l] = blk[k(i), l]
-    blk_sel = blk_rows.gather(2, k_of[:, None, :].expand(B, D, D))             # blk[k(i), k(j)]
-    return torch.where(in_slot[:, :, None] & in_slot[:, None, :], blk_sel, cov)
+    return write_slot(cov, dst, cov[:, :, src:src + size], cov[:, src:src + size, src:src + size])
 
 
 def kalman_update(cov: torch.Tensor, H: torch.Tensor, res: torch.Tensor, r_diag: torch.Tensor):
@@ -86,6 +90,17 @@ def kalman_update(cov: torch.Tensor, H: torch.Tensor, res: torch.Tensor, r_diag:
     new_cov, dx = kernels.kalman_downdate(cov.contiguous(), W, u)
     chi2 = (u * u).sum(-1)
     return dx, new_cov, chi2
+
+
+def innovation_chi2(cov: torch.Tensor, H: torch.Tensor, res: torch.Tensor, r_diag: torch.Tensor):
+    """resᵀ (H P Hᵀ + R)⁻¹ res without forming the update (gating only).
+
+    cov [..., D, D] broadcasts against H [..., M, D]; res and r_diag
+    [..., M]. A failed factorization gives NaN, which fails every gate."""
+    S = H @ (cov @ H.transpose(-1, -2)) + torch.diag_embed(r_diag.expand(res.shape))
+    S = 0.5 * (S + S.transpose(-1, -2))
+    L = cholesky_or_nan(S)
+    return (res[..., None, :] @ torch.cholesky_solve(res[..., None], L))[..., 0, 0]
 
 
 def _quat_boxplus(q: torch.Tensor, dth: torch.Tensor) -> torch.Tensor:
@@ -115,6 +130,12 @@ def apply_dx(state, dx: torch.Tensor):
         slam_p=state.slam_p + dslam,
         plane_cp=state.plane_cp + dplane,
     )
+
+
+def ekf_update(state, H: torch.Tensor, res: torch.Tensor, r_diag: torch.Tensor):
+    """:func:`kalman_update` + :func:`apply_dx`. Returns (new_state, χ² [B])."""
+    dx, new_cov, chi2 = kalman_update(state.cov, H, res, r_diag)
+    return apply_dx(state.replace(cov=new_cov), dx), chi2
 
 
 def inv3(A: torch.Tensor) -> torch.Tensor:
@@ -177,3 +198,62 @@ def measurement_compress(H: torch.Tensor, res: torch.Tensor):
     H [B, M, D] -> (R [B, r, D], Qᵀres [B, r]) with r = min(M, D)."""
     q_thin, r_mat = torch.linalg.qr(H, mode="reduced")
     return r_mat, (q_thin.transpose(-1, -2) @ res[..., None])[..., 0]
+
+
+def info_compress_rows(M_big: torch.Tensor) -> torch.Tensor:
+    """Triangular compressed rows of stacked blocks M_big [..., R, C] through
+    the information form: R [..., C, C] with RᵀR = M_bigᵀM_big, the R factor
+    thin QR gives (up to row signs) when the Gram of the nonzero columns is
+    SPD. The columns are first scaled to unit norm (exact, and it keeps the
+    Cholesky usable on stacks that mix units); all-zero columns get a unit
+    pivot and come out as zero rows. Where that factorization fails (a
+    rank-deficient stack), the block takes an eps·I-jittered factor instead
+    (eps = 1e-14 in f64), chosen per block by a finite check.
+
+    The Gram and its factor are formed in f64 whatever the input's type, and
+    the result is cast back. The plane stacks are rank-deficient by nature
+    (the global translation and yaw of clones and plane together are not
+    observed): in f32 the rounding of the Gram exceeds any jitter f32 can
+    hold, so both factorizations fail and no plane would ever be
+    initialized (the JAX package's f32 path fails the same way on the CPU).
+    """
+    dtype = M_big.dtype
+    M_big = M_big.double()
+    C = M_big.shape[-1]
+    s = torch.sqrt(torch.sum(M_big * M_big, dim=-2))
+    nz = s > 0
+    sg = torch.where(nz, s, torch.ones_like(s))
+    Mn = M_big / sg[..., None, :]
+    G = Mn.transpose(-1, -2) @ Mn
+    Ge = G + torch.diag_embed(torch.where(nz, 0.0, 1.0).to(G.dtype))
+    L = cholesky_or_nan(Ge)
+    Lj = cholesky_or_nan(Ge + 1e-14 * torch.eye(C, dtype=G.dtype, device=G.device))
+    finite = torch.isfinite(L).all(dim=-1).all(dim=-1)[..., None, None]
+    L = torch.where(finite, L, Lj)
+    return (L.transpose(-1, -2) * torch.where(nz, s, torch.zeros_like(s))[..., None, :]).to(dtype)
+
+
+def qr_init_split(H_L: torch.Tensor, H_R: torch.Tensor, res: torch.Tensor):
+    """Rotate [H_L | H_R | res] so the top c rows isolate the new variable
+    (StateHelper::initialize). H_L [..., M, c], H_R [..., M, D], res [..., M].
+    Returns (H_L_init [..., c, c], H_R_init [..., c, D], res_init [..., c],
+    H_R_up [..., M−c, D], res_up [..., M−c])."""
+    c = H_L.shape[-1]
+    A, Xt = householder_qt(H_L, torch.cat([H_R, res[..., None]], dim=-1))
+    H_R2, res2 = Xt[..., :-1], Xt[..., -1]
+    return A[..., :c, :c], H_R2[..., :c, :], res2[..., :c], H_R2[..., c:, :], res2[..., c:]
+
+
+def initialize_invertible(state, slot_start: torch.Tensor, H_R: torch.Tensor, H_L: torch.Tensor,
+                          r_diag: torch.Tensor, res: torch.Tensor):
+    """Initialize a 3-dof variable in a (zeroed) slot from an invertible
+    system (StateHelper::initialize_invertible). slot_start [B], H_R
+    [B, 3, D], H_L [B, 3, 3], r_diag [3] or [B, 3], res [B, 3]. Returns
+    (new_cov, dx_new [B, 3]): the caller writes value ⊞ dx_new into the slot."""
+    Ma = state.cov @ H_R.transpose(-1, -2)                               # [B, D, 3]
+    M = H_R @ Ma + torch.diag_embed(r_diag.expand(res.shape))
+    H_Linv = inv3(H_L)
+    P_LL = H_Linv @ M @ H_Linv.transpose(-1, -2)
+    cross = -Ma @ H_Linv.transpose(-1, -2)
+    cov = write_slot(state.cov, slot_start, cross, P_LL)
+    return cov, (H_Linv @ res[..., None])[..., 0]

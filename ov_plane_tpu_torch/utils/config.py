@@ -1,9 +1,10 @@
 """Configuration tree of the PyTorch port.
 
 An own copy of the part of ``ov_plane_tpu/utils/config.py`` that the batched
-point-MSCKF filter reads: the same dataclass names, field names and
-defaults, so one set of overrides configures both packages. Options of the
-later slices (plane frontend, SLAM, ZUPT, YAML loading) are not carried yet.
+filter reads (the point-MSCKF path and the plane filter stages): the same
+dataclass names, field names and defaults, so one set of overrides
+configures both packages. Options of the later slices (plane frontend, SLAM
+updaters, ZUPT, YAML loading) are not carried yet.
 """
 
 from __future__ import annotations
@@ -27,10 +28,40 @@ class StateOptions:
     max_msckf_in_update: int = 40
     feat_rep_msckf: str = "GLOBAL_3D"
     feat_rep_slam: str = "GLOBAL_3D"
+
+    # Plane options (reference: StateOptions.h "16 plane-specific options").
     use_plane_constraint: bool = True
     use_plane_constraint_msckf: bool = True
+    use_plane_constraint_slamu: bool = True
+    use_plane_constraint_slamd: bool = True
     use_plane_slam_feats: bool = True
+    use_refine_plane_feat: bool = True
+    use_plane_ransac: bool = False
     use_groundtruths: bool = False
+    sigma_constraint: float = 0.05
+    const_init_multi: float = 5.0
+    const_init_chi2: float = 1.0
+    max_msckf_plane: int = 20
+    sigma_plane_merge: float = 0.1
+    plane_merge_chi2: float = 1.0
+    plane_merge_deg_max: float = 1.0
+    plane_collect_init_feats: bool = True
+    plane_collect_msckf_feats: bool = True
+    plane_init_min_feat: int = 10
+    plane_init_max_cond: float = 50.0
+    plane_msckf_min_feat: int = 5
+    plane_msckf_max_cond: float = 50.0
+    # Robust plane refinement: CauchyLoss(1.0) on every factor and post-opt
+    # inlier re-acceptance at 0.03 m with >= max(4, 0.8·n) survivors
+    # (PlaneFitting.cpp:256,367,452-495); 0 disables.
+    plane_refine_cauchy: float = 1.0
+    plane_refine_max_error: float = 0.03
+    plane_refine_min_inlier_ratio: float = 0.80
+    # Plane-feature triangulation gates (plane_feat_* keys in YAML).
+    plane_feat_min_obs: int = 2
+    plane_min_dist: float = 0.10
+    plane_max_dist: float = 60.0
+    plane_max_cond_number: float = 20000.0
 
 
 @dataclass
@@ -94,9 +125,15 @@ class TpuOptions:
     max_obs_per_frame: int = 512
     max_planes: int = 8
     max_msckf_update: int = 64
+    # Grouped out-of-state plane updates per frame: the reference processes
+    # every group; overflow is counted in StepOutput.n_plane_dropped.
+    max_planes_per_frame: int = 8
     max_imu_per_frame: int = 64
     shard_axis: str = ""
     use_info_compression: bool = False
+    # Tilt-aware constraint whitening of each plane group:
+    # sqrt(sigma_c² + σ_z² + (‖cp‖·σ_z/s_lat)²) (no reference analogue).
+    sigma_c_adaptive: bool = False
 
 
 @dataclass
@@ -159,4 +196,30 @@ def slice_config() -> VioConfig:
     cfg.tpu.max_msckf_update = 40
     cfg.tpu.use_info_compression = True
     cfg.tpu.max_planes = 1
+    return cfg
+
+
+def plane_config() -> VioConfig:
+    """M-PL: the plane arm of the repo's algorithm ladder
+    (``scripts/run_sweep.py`` ``VARIANTS["M-PL"]``: 30 s procedural
+    ``room_scan``, 40 free points + 40 points on planes, bank 192, 96
+    observation slots, 40 features per update, no SLAM landmarks, CP planes
+    with point-on-plane constraints), with information-form compression on
+    as the sweep sets it on an accelerator. Calibration off; K = 12 clone
+    slots, 8 plane slots, D = 15 + 72 + 3 + 24 = 114. Its scene is the
+    committed one (``sim.simulator.PLANE_SCENE_PATH``)."""
+    cfg = sim_config()
+    cfg.state.max_slam_features = 0
+    cfg.state.do_calib_camera_pose = False
+    cfg.state.do_calib_camera_intrinsics = False
+    cfg.state.do_calib_camera_timeoffset = False
+    cfg.state.use_plane_constraint = True
+    cfg.state.use_plane_slam_feats = True
+    cfg.state.use_plane_constraint_msckf = True
+    cfg.tpu.max_features = 192
+    cfg.tpu.max_obs_per_frame = 96
+    cfg.tpu.max_msckf_update = 40
+    cfg.tpu.max_planes = 8
+    cfg.tpu.max_planes_per_frame = 8
+    cfg.tpu.use_info_compression = True
     return cfg

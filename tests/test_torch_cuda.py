@@ -7,7 +7,8 @@ conftest imports JAX, so run it there without it:
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 
 The sweep is chip_smoke.py's: every D of SWEEP_D with every M of SWEEP_M
-(tile, chunk and split edges, empty inputs), B cycling over 1, 5, 64; a band
+(tile, chunk and split edges, empty inputs, the filters' shapes), B cycling
+over 1, 5, 64; a band
 of zero (masked) rows, and H at storage offset 1 (4 bytes off 16-byte
 alignment in f32) in every other entry. f32 agrees to 1e-5 of the largest
 value (the row sums run in another order than the plain product), f64 to
@@ -19,11 +20,12 @@ import torch
 
 from ov_plane_tpu_torch.ops import kernels
 
-SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 195, 300)
-SWEEP_M = (0, 1, 3, 93, 94, 300, 1320, 4096)
+SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 114, 195, 300)
+SWEEP_M = (0, 1, 3, 93, 94, 114, 115, 300, 1320, 4096)
 SWEEP_B = (1, 5, 64)
 SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in enumerate(SWEEP_M)]
-SWEEP = [(64, 1320, 93), (64, 93, 93)] + SWEEP
+# The filters' own shapes first: the point path's (D = 93) and the plane path's (D = 114).
+SWEEP = [(64, 1320, 93), (64, 93, 93), (64, 1320, 114), (64, 114, 114), (64, 115, 114)] + SWEEP
 
 
 def _inputs(B, M, D, dtype, g, offset):

@@ -11,7 +11,8 @@ import torch
 
 from ov_plane_tpu_torch.models.feature_bank import FeatureBank
 from ov_plane_tpu_torch.models.manager import VioEngine, init_state_with_gt
-from ov_plane_tpu_torch.utils.config import slice_config
+from ov_plane_tpu_torch.sim import simulator
+from ov_plane_tpu_torch.utils.config import plane_config, slice_config
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "ov_plane_tpu_torch"
@@ -41,7 +42,8 @@ def test_importing_the_port_loads_no_jax():
     assert len(MODULES) >= 15
 
 
-@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "tools").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     hits = FORBIDDEN.findall(path.read_text())
@@ -55,6 +57,13 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         VioEngine.from_config(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         FeatureBank.create(cfg.tpu.max_features, 12, batch=1)
+    for path in (simulator.SCENE_PATH, simulator.PLANE_SCENE_PATH):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            simulator.load_scene(path)
+        assert simulator.load_scene(path, device="cpu").imu_t.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VioEngine.from_config(plane_config())
+    assert VioEngine.from_config(plane_config(), device="cpu").layout.dim == 114
     eng = VioEngine.from_config(cfg, device="cpu")
     z = torch.zeros(1, 3, dtype=torch.float64)
     q = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float64)
@@ -78,7 +87,15 @@ def test_later_slices_raise_not_implemented():
         setattr(target, path[-1] if path else obj, value)
         with pytest.raises(NotImplementedError, match="later slice"):
             VioEngine.from_config(cfg, device="cpu")
-    cfg = slice_config()
-    cfg.state.use_plane_constraint = True
-    with pytest.raises(NotImplementedError, match="plane"):
+    cfg = plane_config()
+    cfg.state.use_plane_ransac = True
+    with pytest.raises(NotImplementedError, match="plane RANSAC"):
         VioEngine.from_config(cfg, device="cpu")
+
+
+def test_planes_need_global_3d_features():
+    for key in ("feat_rep_msckf", "feat_rep_slam"):
+        cfg = plane_config()
+        setattr(cfg.state, key, "ANCHORED_MSCKF_INVERSE_DEPTH")
+        with pytest.raises(ValueError, match="GLOBAL_3D"):
+            VioEngine.from_config(cfg, device="cpu")

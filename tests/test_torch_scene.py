@@ -1,8 +1,11 @@
-"""The port's committed simulator scene against a fresh JAX ``build_sim``.
+"""The port's committed simulator scenes against a fresh JAX ``build_sim``.
 
 ``ov_plane_tpu_torch/data/sim_config1_truth.npz`` holds the noiseless truth
 of the bench's simulator scene (``bench.py`` sim mode: 30 s, 60 points, 96
-observation slots). This file is also its generator:
+observation slots); ``sim_planes_truth.npz`` that of the M-PL scene
+(``scripts/run_sweep.py`` ``VARIANTS["M-PL"]``: 30 s, 40 free points + 40
+points on planes), with the true plane CPs. This file is also their
+generator:
 
     env JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_scene.py
 """
@@ -17,10 +20,11 @@ import torch
 from ov_plane_tpu.sim.simulator import build_sim
 from ov_plane_tpu.utils.config import sim_config as j_sim_config
 from ov_plane_tpu_torch.sim import simulator as tsim
-from ov_plane_tpu_torch.utils.config import slice_config
+from ov_plane_tpu_torch.utils.config import plane_config, slice_config
 
 FIELDS = ("imu_t", "imu_w_true", "imu_a_true", "cam_t", "cam_t_imu", "obs_id", "obs_uv_true",
           "obs_plane", "imu_window_start", "gt_q", "gt_p", "gt_v")
+PLANE_FIELDS = FIELDS + ("plane_cp",)
 
 
 def _bench_cfg():
@@ -41,10 +45,29 @@ def _bench_cfg():
     return cfg
 
 
-def scene_arrays() -> dict:
-    cfg = _bench_cfg()
+def _plane_cfg():
+    """The JAX configuration of the M-PL arm (scripts/run_sweep.py:64-79)."""
+    cfg = j_sim_config()
+    cfg.sim.traj_duration = 30.0
+    cfg.state.max_slam_features = 0
+    cfg.state.use_plane_constraint = True
+    cfg.state.use_plane_slam_feats = True
+    cfg.state.do_calib_camera_pose = False
+    cfg.state.do_calib_camera_intrinsics = False
+    cfg.state.do_calib_camera_timeoffset = False
+    cfg.num_pts = 40
+    cfg.num_pts_plane = 40
+    cfg.tpu.max_features = 192
+    cfg.tpu.max_obs_per_frame = 96
+    cfg.tpu.max_msckf_update = 40
+    cfg.tpu.use_info_compression = True
+    return cfg
+
+
+def scene_arrays(cfg=None, fields=FIELDS) -> dict:
+    cfg = cfg or _bench_cfg()
     sim = build_sim(cfg, max_obs=cfg.tpu.max_obs_per_frame)
-    out = {k: np.asarray(getattr(sim, k)) for k in FIELDS}
+    out = {k: np.asarray(getattr(sim, k)) for k in fields}
     out["obs_id"] = out["obs_id"].astype(np.int32)
     out["obs_plane"] = out["obs_plane"].astype(np.int32)
     out["imu_window_start"] = out["imu_window_start"].astype(np.int32)
@@ -56,10 +79,10 @@ def fresh():
     return scene_arrays()
 
 
-def test_committed_scene_matches_build_sim(fresh):
-    with np.load(tsim.SCENE_PATH) as z:
-        assert sorted(z.files) == sorted(FIELDS)
-        for k in FIELDS:
+def _check_committed(path, fields, fresh):
+    with np.load(path) as z:
+        assert sorted(z.files) == sorted(fields)
+        for k in fields:
             assert z[k].shape == fresh[k].shape, k
             if np.issubdtype(fresh[k].dtype, np.integer):
                 np.testing.assert_array_equal(z[k], fresh[k], err_msg=k)
@@ -67,8 +90,25 @@ def test_committed_scene_matches_build_sim(fresh):
                 np.testing.assert_allclose(z[k], fresh[k], rtol=0, atol=1e-9, err_msg=k)
 
 
+def test_committed_scene_matches_build_sim(fresh):
+    _check_committed(tsim.SCENE_PATH, FIELDS, fresh)
+
+
+def test_committed_plane_scene_matches_build_sim():
+    fresh = scene_arrays(_plane_cfg(), PLANE_FIELDS)
+    _check_committed(tsim.PLANE_SCENE_PATH, PLANE_FIELDS, fresh)
+    truth = tsim.load_scene(tsim.PLANE_SCENE_PATH, device="cpu")
+    cfg = plane_config()
+    assert truth.obs_id.shape[1] == cfg.tpu.max_obs_per_frame
+    assert truth.plane_cp.shape[1] == 3 and truth.plane_cp.shape[0] >= 2
+    # Points on planes are observed, labelled with the plane's index.
+    labels = truth.obs_plane[truth.obs_id >= 0]
+    assert (labels >= 0).any() and (labels < 0).any()
+    assert int(labels.max()) < truth.plane_cp.shape[0]
+
+
 def test_scene_shape_is_the_bench_scene():
-    truth = tsim.load_scene()
+    truth = tsim.load_scene(device="cpu")
     cfg = slice_config()
     assert truth.obs_id.shape[1] == cfg.tpu.max_obs_per_frame
     assert truth.cam_t.shape[0] == truth.gt_q.shape[0] == truth.obs_uv_true.shape[0]
@@ -87,7 +127,9 @@ if __name__ == "__main__":
     import jax
 
     jax.config.update("jax_enable_x64", True)
-    arrays = scene_arrays()
-    np.savez_compressed(tsim.SCENE_PATH, **arrays)
-    print(f"wrote {tsim.SCENE_PATH} ({Path(tsim.SCENE_PATH).stat().st_size} bytes, "
-          f"{arrays['cam_t'].shape[0]} frames, {arrays['imu_t'].shape[0]} IMU samples)", file=sys.stderr)
+    for path, cfg, fields in ((tsim.SCENE_PATH, _bench_cfg(), FIELDS),
+                              (tsim.PLANE_SCENE_PATH, _plane_cfg(), PLANE_FIELDS)):
+        arrays = scene_arrays(cfg, fields)
+        np.savez_compressed(path, **arrays)
+        print(f"wrote {path} ({Path(path).stat().st_size} bytes, "
+              f"{arrays['cam_t'].shape[0]} frames, {arrays['imu_t'].shape[0]} IMU samples)", file=sys.stderr)

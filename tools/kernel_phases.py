@@ -6,15 +6,17 @@
 Copies ``ov_plane_tpu_torch/csrc/`` into ``build/kernel_phases/`` with
 instrumentation written by thread 0 of every block, builds the copy with the
 package's nvcc flags, checks that it gives the package kernels' bits, and
-runs it at the main path's f32 shapes, each call after the L2 flush of
+runs it at every path's f32 shapes (``chip_smoke.PATH_SHAPES``: D = 93 on
+the point path, D = 114 on the plane path), each call after the L2 flush of
 ``chip_smoke.device_ms``:
 
-* ``kalman_downdate`` (B=64, M=D=93, ``kernels.stream_plan``): a
+* ``kalman_downdate`` (B=64, M=D=93; M=114 and 115 at D=114;
+  ``kernels.stream_plan``): a
   ``%globaltimer`` mark at six points of ``gram_stream_kernel``: the start,
   after the set-up (first copy issued, padding zeroed), when the stream's
   bulk copy has arrived, after the repack, after the FMA loop, after the
   stores. Prints per phase the median and largest time over the blocks.
-* ``gram_reduce`` (B=64, M=1320, D=93, ``kernels.launch_plan``): the
+* ``gram_reduce`` (B=64, M=1320, D=93 and 114, ``kernels.launch_plan``): the
   ``clock64`` cycles of ``gram_rows_kernel``'s chunk loop, summed per block
   into the FMA loop (thread 0's warp), the repack with its wait for the bulk
   copy, that wait alone, the barrier, and thread 0's proxy fence and issue
@@ -159,25 +161,14 @@ def marked_calls(lib, fn, n_blocks: int, calls: int = 3):
         yield marks.astype(np.int64), cycles
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("kernel_phases: needs a CUDA card", file=sys.stderr)
-        return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
-    libs = build_marked()
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    stream = torch.cuda.current_stream().cuda_stream
-    B, M, D = chip_smoke.BATCH, chip_smoke.MAIN_D, chip_smoke.MAIN_D
-    g = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-
+def downdate_phases(lib, B: int, M: int, D: int, g, n_sm: int, stream: int) -> None:
     P, W, u = chip_smoke._inputs("kalman_downdate", B, M, D, torch.float32, g, zero_rows=False)
     plan = kernels.stream_plan(B, M, D, 4, n_sm)
     out, dx = torch.empty(B, D, D, device="cuda"), torch.empty(B, D, device="cuda")
 
     def downdate():
-        if libs["kalman_downdate"].ovp_kalman_downdate_f32(P.data_ptr(), W.data_ptr(), u.data_ptr(), out.data_ptr(),
-                                                           dx.data_ptr(), B, M, D, *plan, stream):
+        if lib.ovp_kalman_downdate_f32(P.data_ptr(), W.data_ptr(), u.data_ptr(), out.data_ptr(),
+                                       dx.data_ptr(), B, M, D, *plan, stream):
             raise RuntimeError("marked downdate launch failed")
 
     downdate()
@@ -187,22 +178,23 @@ def main() -> int:
     print(f"[phases] kalman_downdate device ms, cold L2: package kernel "
           f"{chip_smoke.device_ms(lambda: kernels.kalman_downdate(P, W, u)):.5f}, marked copy "
           f"{chip_smoke.device_ms(downdate):.5f}")
-    for rep, (marks, _) in enumerate(marked_calls(libs["kalman_downdate"], downdate, plan.groups * B)):
+    for rep, (marks, _) in enumerate(marked_calls(lib, downdate, plan.groups * B)):
         t = marks[:, :6]
         d = np.diff(t, axis=1) / 1e3
         print(f"[phases] kalman_downdate call {rep}, {len(t)} blocks, us per phase (median / largest): "
               + ", ".join(f"{p} {np.median(d[:, i]):.2f} / {d[:, i].max():.2f}" for i, p in enumerate(PHASES))
               + f"; last block done {(t[:, 5].max() - t[:, 0].min()) / 1e3:.2f} us after the first began")
 
-    M = chip_smoke.MAIN_M
+
+def gram_phases(lib, B: int, M: int, D: int, g, n_sm: int, stream: int) -> None:
     H, r = chip_smoke._inputs("gram_reduce", B, M, D, torch.float32, g, zero_rows=False)
     gplan = kernels.launch_plan(B, M, D, 4, n_sm)
     lam, eta = torch.empty(B, D, D, device="cuda"), torch.empty(B, D, device="cuda")
     ws = torch.empty(gplan.workspace, device="cuda")
 
     def gram():
-        if libs["gram_reduce"].ovp_gram_reduce_f32(H.data_ptr(), r.data_ptr(), lam.data_ptr(), eta.data_ptr(),
-                                                   ws.data_ptr(), B, M, D, *kernels._plan_args(gplan), stream):
+        if lib.ovp_gram_reduce_f32(H.data_ptr(), r.data_ptr(), lam.data_ptr(), eta.data_ptr(),
+                                   ws.data_ptr(), B, M, D, *kernels._plan_args(gplan), stream):
             raise RuntimeError("marked gram launch failed")
 
     gram()
@@ -211,12 +203,28 @@ def main() -> int:
     print(f"[phases] gram_reduce f32 B={B} M={M} D={D} {gplan}")
     print(f"[phases] gram_reduce device ms, cold L2: package kernels "
           f"{chip_smoke.device_ms(lambda: kernels.gram_reduce(H, r)):.5f}, marked copy {chip_smoke.device_ms(gram):.5f}")
-    for rep, (_, cyc) in enumerate(marked_calls(libs["gram_reduce"], gram, gplan.blocks * gplan.groups)):
+    for rep, (_, cyc) in enumerate(marked_calls(lib, gram, gplan.blocks * gplan.groups)):
         med = np.median(cyc[:, :7], axis=0)
         print(f"[phases] gram_reduce call {rep}, {len(cyc)} blocks, gram_rows_kernel cycles per block (median): "
               f"chunk loop {med[0]:.0f} (largest {cyc[:, 0].max()}), FMA loop {med[1]:.0f}, repack {med[2]:.0f} "
               f"of which waiting for the copy {med[3]:.0f}, barrier {med[4]:.0f}, thread 0's proxy fence "
               f"{med[5]:.0f} and copy issue {med[6]:.0f}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_phases: needs a CUDA card", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
+    libs = build_marked()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+    phases = {"kalman_downdate": downdate_phases, "gram_reduce": gram_phases}
+    for name, fn in phases.items():
+        for B, M, D in sorted({sh for p in chip_smoke.PATH_SHAPES.values() for sh in p[name]}):
+            fn(libs[name], B, M, D, g, n_sm, stream)
     return 0
 
 
