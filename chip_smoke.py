@@ -19,16 +19,27 @@ Phases (any failure raises and the exit code is nonzero):
    wrapper's host time per call;
 4. drive the point path: the bench's simulator scene, 64 Monte-Carlo streams
    from a seeded generator, ``VioEngine`` + ``run_sequence`` over its first
-   160 frames in f32, timed after a warm-up that also counts host
+   64 frames in f32, timed after a warm-up that also counts host
    synchronizations inside 9 steps; check the launch counts, finiteness,
    stream 0's accuracy and the agreement of two streams with an f64 CPU run
    of the port (the per-frame count of features that passed the χ² gate
    printed beside it); profile 5 frames;
 5. drive the plane path the same way (``plane_config``, the committed M-PL
-   scene, all 287 frames, 64 streams, f32): also the plane states and
+   scene, its first 160 frames, 64 streams, f32): also the plane states and
    constraint updates, every final CP within 0.10 m of a true plane, and the
    per-frame plane counters against the f64 CPU run (60 frames);
-6. print the ``{"kernels": [...]}`` line, then the device line last.
+6. drive the vision path, the system's main path (``vision_config``, the
+   bench's vision mode): render the 80 frames of the committed vision scene
+   on the card, add each stream's fixed pixel noise, quantize to the 8-bit
+   lattice and stage the ring on the card; ``VioEngine.from_config`` →
+   ``FusedVisionDriver(cfg, eng, 64)`` → ``init_frontend`` → ``stage_image``
+   → ``step_batch`` per frame → ``flush_stream``. A 12-frame warm-up counts
+   the host synchronizations per step (only the one packed pull), then 80
+   frames from a fresh state are timed: launch counts, stream 0's accuracy,
+   the host detector's plane labels reaching the step and delayed-init
+   candidates over the 64 streams, and streams 0–1 against the port's CPU
+   run (frontend f32, filter f64) over 20 frames; a 5-frame profile by range;
+7. print the ``{"kernels": [...]}`` line, then the device line last.
 
 Needs a CUDA card: without one it exits with code 2 and prints no result.
 """
@@ -57,12 +68,17 @@ SEED = 7
 # plane path the grouped plane update and both delayed-init candidates with
 # M = D + 1.
 GRAM_M = 40 * (3 * 12 - 3)
+# The vision path stacks max(max_msckf_update, max_msckf_in_update) = 40
+# features too, and adds the eight merge slots' 3-row downdates per frame.
 PATH_SHAPES = {
     "point": {"gram_reduce": [(BATCH, GRAM_M, 93)], "kalman_downdate": [(BATCH, 93, 93)]},
     "plane": {"gram_reduce": [(BATCH, GRAM_M, 114)], "kalman_downdate": [(BATCH, 114, 114), (BATCH, 115, 114)]},
+    "vision": {"gram_reduce": [(BATCH, GRAM_M, 114)],
+               "kalman_downdate": [(BATCH, 114, 114), (BATCH, 115, 114), (BATCH, 3, 114)]},
 }
 # The shape whose numbers lead each kernel's entry of the {"kernels": ...}
-# line: the plane path's (slice 3), the downdate at its most frequent M.
+# line: the gram's, and the downdate's largest (M = D + 1, three of the
+# vision path's twelve launches per frame and most of their time).
 LEAD = {"gram_reduce": (BATCH, GRAM_M, 114), "kalman_downdate": (BATCH, 115, 114)}
 # f32 kernel vs plain: max|kernel − plain| ≤ TOL·max|plain| (the row sums run
 # in another order); f64 the same at 1e-12.
@@ -88,7 +104,7 @@ FLUSH_BYTES = 256 << 20  # written before each timed call: five times the 50 MB 
 # offset 1 (4 bytes off 16-byte alignment in f32), and every entry has a band
 # of zero (masked) rows.
 SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 114, 195, 300)
-SWEEP_M = (0, 1, 3, 93, 94, 114, 115, 300, 1320, 4096)
+SWEEP_M = (0, 1, 3, 93, 94, 114, 115, 300, 792, 1320, 4096)
 SWEEP_B = (1, 5, 64)
 SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in enumerate(SWEEP_M)]
 
@@ -317,15 +333,14 @@ class PathSpec(NamedTuple):
 
 PATHS = (
     # Phase 4: the point path on the bench scene (slice 1), cut to its first
-    # 160 frames: with all 287 the whole script took 990.5 s of its 1200 s
-    # limit on an H100 whose host ran at the slow end of a 1.5x spread seen
-    # between calls (PERF.md §6); 160 frames leave room for a host 1.4x
-    # slower than that.
-    PathSpec("point", "slice_config", "SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 1}, 4, 30, 160),
-    # Phase 5: the plane path on the M-PL scene (slice 3), every frame: the
-    # downdate closes the classic update, the grouped plane update and both
-    # delayed-init candidates; the first plane state appears at frame 20.
-    PathSpec("plane", "plane_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 4}, 18, 60),
+    # 64 frames to pay for the vision path within the time limit (its
+    # 30-frame CPU check unchanged).
+    PathSpec("point", "slice_config", "SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 1}, 4, 30, 64),
+    # Phase 5: the plane path on the M-PL scene (slice 3), cut to its first
+    # 160 frames: the downdate closes the classic update, the grouped plane
+    # update and both delayed-init candidates; the first plane state appears
+    # at frame 20.
+    PathSpec("plane", "plane_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 4}, 18, 60, 160),
 )
 PLANE_COUNTERS = ("n_planes", "n_plane_init", "n_plane_constraints", "n_plane_merges", "n_plane_dropped")
 
@@ -528,11 +543,18 @@ def profile_frames(spec: PathSpec, info: dict, n: int = 5):
         run_sequence(eng, st, bk, sim, imu_window=cfg.tpu.max_imu_per_frame, n_frames=n, start=first)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t) * 1e3
+    report_profile(tag, prof, STAGES, first, n, frame_wall_ms, wall_ms)
+
+
+def report_profile(tag, prof, ranges, first, n, frame_wall_ms, wall_ms):
+    """Print a profile of n frames: kernels and device busy time per frame,
+    the device's idle share of an unprofiled frame, each range's host ms
+    (inflated by the profiler) and kernel launches, the largest kernels."""
     t = time.time()
     events = _raw_events(prof)
-    # A stage's host range and its device annotation share one name: the
+    # A range's host span and its device annotation share one name: the
     # kernels are the device events with other names.
-    kern = [(name, dur) for name, dev, _, dur in events if dev and name not in STAGES]
+    kern = [(name, dur) for name, dev, _, dur in events if dev and name not in ranges]
     busy_ms = sum(dur for _, dur in kern) / 1e6 / n
     if busy_ms <= 0:
         print(f"{tag} the profiler recorded no device time: device idle share not measured")
@@ -540,19 +562,19 @@ def profile_frames(spec: PathSpec, info: dict, n: int = 5):
     print(f"{tag} frames {first}-{first + n - 1}: {len(kern) / n:.0f} kernels per frame, device busy {busy_ms:.2f} ms; "
           f"unprofiled frame {frame_wall_ms:.2f} ms -> device idle {100 * (1 - busy_ms / frame_wall_ms):.1f}%; "
           f"profiled frame {wall_ms / n:.2f} ms")
-    spans = sorted((t0, t0 + dur, name) for name, dev, t0, dur in events if name in STAGES and not dev)
-    host = dict.fromkeys(STAGES, 0.0)
+    spans = sorted((t0, t0 + dur, name) for name, dev, t0, dur in events if name in ranges and not dev)
+    host = dict.fromkeys(ranges, 0.0)
     for s0, s1, name in spans:
         host[name] += (s1 - s0) / 1e6 / n
-    launches = dict.fromkeys(STAGES, 0)
+    launches = dict.fromkeys(ranges, 0)
     starts = [s0 for s0, _, _ in spans]
     for name, dev, t0, _ in events:
         if not dev and name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
             i = bisect.bisect_right(starts, t0) - 1
             if i >= 0 and t0 <= spans[i][1]:
                 launches[spans[i][2]] += 1
-    print(f"{tag} host ms per frame by stage (profiled): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
-    print(f"{tag} kernel launches per frame by stage: " + ", ".join(f"{k} {v / n:.0f}" for k, v in launches.items()))
+    print(f"{tag} host ms per frame by range (profiled): " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    print(f"{tag} kernel launches per frame by range: " + ", ".join(f"{k} {v / n:.0f}" for k, v in launches.items()))
     by_name = {}
     for name, dur in kern:
         tot, c = by_name.get(name, (0, 0))
@@ -562,11 +584,261 @@ def profile_frames(spec: PathSpec, info: dict, n: int = 5):
     print(f"{tag} events read in {time.time() - t:.1f} s")
 
 
+VISION_FRAMES = 80      # the bench's vision frames (bench.py:116)
+VISION_WARM = 12        # warm-up frames, the host synchronizations counted from the third
+VISION_REF = 20         # frames of streams 0-1 against the port's CPU run
+VISION_PER_FRAME = {"gram_reduce": 1, "kalman_downdate": 12}   # classic 1, plane 1, init 2, merge slots 8
+VISION_RANGES = ("frontend.preprocess", "frontend.klt", "frontend.ransac", "frontend.fast", "frontend.triangulate",
+                 "step.propagate_and_clone", "step.ingest", "step.triage", "step.plane_init", "step.plane_msckf",
+                 "step.msckf_update", "step.marginalize", "host.plane_detect", "pull")
+
+
+class VisionRun(NamedTuple):
+    cfg: object
+    truth: object
+    imu: tuple              # host (imu_t [Ti], imu_w [B, Ti, 3], imu_a [B, Ti, 3], cam_t_imu [Tc])
+    gt_bg0: torch.Tensor    # [B, 3] the noisy draws' bias truth at frame 0
+    gt_ba0: torch.Tensor
+    ring: list              # staged frames, [B, h, w] on the card
+    sampler: str
+    wire: str
+
+
+def vision_setup(cfg, eng):
+    """The vision scene's 80 frames rendered on the card, each stream's fixed
+    pixel noise (σ 0.01, bench.py:278-280) added, quantized to the 8-bit
+    lattice (the bench's camera ADC, bench.py:293-300) and staged; the IMU
+    noise of 64 Monte-Carlo streams."""
+    import numpy as np
+    from ov_plane_tpu_torch.frontend.fused import FusedVisionDriver
+    from ov_plane_tpu_torch.frontend.synthetic import render_frame_textured
+    from ov_plane_tpu_torch.ops.quat import quat_2_rot
+    from ov_plane_tpu_torch.sim import simulator
+
+    truth = simulator.load_scene(simulator.VISION_SCENE_PATH, dtype=torch.float64, device="cuda")
+    sim = simulator.apply_noise(truth, simulator.noise_params(cfg), BATCH,
+                                torch.Generator(device="cuda").manual_seed(SEED))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    w, h = cfg.cam_wh
+    noise = 0.01 * torch.randn(BATCH, h, w, generator=g, device="cuda")
+    drv = FusedVisionDriver(cfg, eng, BATCH)
+    R_ItoC = quat_2_rot(torch.tensor(cfg.cam_extrinsics[0:4], dtype=torch.float64))
+    p_IinC = torch.tensor(cfg.cam_extrinsics[4:7], dtype=torch.float64)
+    t = time.time()
+    ring = []
+    for i in range(1, VISION_FRAMES + 1):
+        img = render_frame_textured(truth.plane_corners, truth.plane_normal, truth.plane_d,
+                                    quat_2_rot(truth.gt_q[i]), truth.gt_p[i], R_ItoC, p_IinC,
+                                    cfg.cam_intrinsics, tuple(cfg.cam_wh))
+        x = torch.clamp(img[None] + noise, 0.0, 1.0)
+        ring.append(drv.stage_image(torch.round(x * 255.0) * (1.0 / 255.0)))
+    torch.cuda.synchronize()
+    mb = sum(r.numel() * r.element_size() for r in ring) / 1e6
+    print(f"[vision] rendered and staged {VISION_FRAMES} frames x {BATCH} streams ({w}x{h}, {mb:.0f} MB ring, "
+          f"{ring[0].dtype}) in {time.time() - t:.2f} s")
+    info = drv.wire_guard_info or {}
+    print(f"[vision] wire guard: wire={drv.vopts.img_wire} sampler={drv.vopts.klt.sampler} "
+          f"u8_lossless={info.get('u8_lossless')} ({info.get('reason')})")
+    imu = (truth.imu_t.cpu().numpy(), sim.imu_w.cpu().numpy(), sim.imu_a.cpu().numpy(), truth.cam_t_imu.cpu().numpy())
+    return VisionRun(cfg, truth, imu, sim.gt_bg_cam[:, 0], sim.gt_ba_cam[:, 0], ring, drv.vopts.klt.sampler,
+                     drv.vopts.img_wire)
+
+
+def _imu_window(run: VisionRun, i: int, streams=slice(None)):
+    """Frame i's IMU windows of the chosen streams, +inf padded (bench.py:195-205),
+    from host copies (a read of a device scalar here would synchronize)."""
+    import numpy as np
+
+    W = run.cfg.tpu.max_imu_per_frame
+    imu_t, imu_w, imu_a, cam_t = run.imu
+    b = imu_w[streams].shape[0]
+    s0 = int(run.truth.imu_window_start[i])
+    m = min(W, imu_t.shape[0] - s0)
+    it = np.full((b, W), np.inf)
+    iw = np.zeros((b, W, 3))
+    ia = np.zeros((b, W, 3))
+    it[:, :m] = imu_t[s0:s0 + m]
+    iw[:, :m] = imu_w[streams, s0:s0 + m]
+    ia[:, :m] = imu_a[streams, s0:s0 + m]
+    return it, iw, ia, np.full(b, float(cam_t[i]))
+
+
+def vision_driver(run: VisionRun, eng, b: int, device, dtype):
+    """A fresh driver, state, bank and tracker state for b streams."""
+    from ov_plane_tpu_torch.frontend.fused import FusedVisionDriver
+    from ov_plane_tpu_torch.models.feature_bank import FeatureBank
+    from ov_plane_tpu_torch.models.manager import init_state_with_gt
+
+    tr = run.truth
+    # The bench spreads the detector's per-stream Delaunay calls over 4 threads (bench.py:261-264).
+    drv = FusedVisionDriver(run.cfg, eng, b, sampler=run.sampler, img_wire=run.wire, plane_threads=4)
+    st = init_state_with_gt(eng, run.cfg, t0=tr.cam_t_imu[0].expand(b), q0=tr.gt_q[0].expand(b, 4),
+                            p0=tr.gt_p[0].expand(b, 3), v0=tr.gt_v[0].expand(b, 3), bg0=run.gt_bg0[:b],
+                            ba0=run.gt_ba0[:b], dtype=dtype, device=device)
+    bank = FeatureBank.create(run.cfg.tpu.max_features, eng.layout.max_clones, b, dtype, device)
+    return drv, st, bank, drv.init_frontend()
+
+
+def drive_vision():
+    """Phase 6: the vision path at full width; returns (n_frames, launches, info)."""
+    from ov_plane_tpu_torch.eval.metrics import rmse_nees
+    from ov_plane_tpu_torch.models.manager import VioEngine
+    from ov_plane_tpu_torch.ops import kernels
+    from ov_plane_tpu_torch.utils.config import vision_config
+
+    tag = "[vision]"
+    t = time.time()
+    cfg = vision_config()
+    eng = VioEngine.from_config(cfg, device="cuda")
+    run = vision_setup(cfg, eng)
+    print(f"{tag} D={eng.layout.dim}; B={BATCH}; {VISION_FRAMES} frames; set-up {time.time() - t:.2f} s")
+
+    # Warm-up: 12 frames; host synchronizations counted in steps 3-12 (the
+    # first two make the libraries' handles), pulls counted by the driver.
+    drv, st, bank, fev = vision_driver(run, eng, BATCH, "cuda", torch.float32)
+    t = time.time()
+    syncs, pulls = [], []
+    for i in range(1, VISION_WARM + 1):
+        n0 = drv.n_pulls
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if i >= 3:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st, bank, fev, _ = drv.step_batch(st, bank, fev, run.ring[i - 1], *_imu_window(run, i))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        if i >= 3:
+            syncs.append(sorted({str(w.message).splitlines()[0] for w in caught
+                                 if "synchronizing CUDA operation" in str(w.message)}))
+            pulls.append(drv.n_pulls - n0)
+    torch.cuda.synchronize()
+    print(f"{tag} warm-up {VISION_WARM} frames in {time.time() - t:.1f} s; steps 3-{VISION_WARM}: host "
+          f"synchronizations other than the pull per step {[len(x) for x in syncs]} {sum(syncs, [])[:5]}; "
+          f"packed pulls read per step {pulls}")
+    if any(syncs) or pulls != [1] * len(pulls):
+        raise RuntimeError("a vision step synchronizes with the host other than by its one packed pull")
+    snapshot = (drv, st, bank, fev)
+
+    # The timed run from a fresh state.
+    drv, st, bank, fev = vision_driver(run, eng, BATCH, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    counters, pulls_ref, qs, ps, covs = [], [], [], [], []
+    t = time.time()
+    labelled = n_labels = 0
+    for i in range(1, VISION_FRAMES + 1):
+        fed = (drv._label_ids >= 0).sum(axis=1)
+        labelled, n_labels = labelled + int((fed > 0).sum()), n_labels + int(fed.sum())
+        st, bank, fev, out = drv.step_batch(st, bank, fev, run.ring[i - 1], *_imu_window(run, i))
+        qs.append(out.q)
+        ps.append(out.p)
+        covs.append(out.cov_diag_imu[:, 0:6])
+        if i > 1:
+            counters.append(drv.last_counters.copy())
+            pulls_ref.append(drv.last_pull[:2].copy())
+    drv.flush_stream()
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    drv.close()
+    counters.append(drv.last_counters.copy())
+    pulls_ref.append(drv.last_pull[:2].copy())
+    launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
+    print(f"{tag} {BATCH}x{VISION_FRAMES} stream-frames in {wall:.3f} s: {BATCH * VISION_FRAMES / wall:.2f} "
+          f"stream-frames/s ({VISION_FRAMES / wall:.3f} frames/s per stream, {1e3 * wall / VISION_FRAMES:.1f} ms "
+          f"per frame of {BATCH} streams)")
+    print(f"{tag} launches: {launches}")
+    for k, n in launches.items():
+        if n != VISION_PER_FRAME[k] * VISION_FRAMES:
+            raise RuntimeError(f"{k} launched {n} times over {VISION_FRAMES} frames, "
+                               f"not {VISION_PER_FRAME[k]} per frame")
+    import numpy as np
+
+    cnt = np.stack(counters)                                   # [T, B, 9]
+    for name, col in (("tracked", 5), ("RANSAC-kept", 6), ("new FAST", 7)):
+        print(f"{tag} {name} per frame (mean over streams): " + " ".join(f"{v:.1f}" for v in cnt[:, :, col].mean(1)))
+    q, p, cov = torch.stack(qs, 1), torch.stack(ps, 1), torch.stack(covs, 1)
+    if not (torch.isfinite(q).all() and torch.isfinite(p).all() and torch.isfinite(st.cov).all()):
+        raise RuntimeError("non-finite vision state")
+    tr = run.truth
+    m = rmse_nees(q.double(), p.double(), cov[..., 0:3].double(), cov[..., 3:6].double(),
+                  tr.gt_q[1:VISION_FRAMES + 1], tr.gt_p[1:VISION_FRAMES + 1])
+    rmse0 = m["rmse_pos"][0].item()
+    n_planes, n_constr, n_init = int(cnt[:, :, 2].max()), int(cnt[:, :, 1].sum()), int(cnt[:, :, 0].sum())
+    print(f"{tag} stream 0: rmse_pos={rmse0:.4f} m rmse_ori={m['rmse_ori_deg'][0].item():.4f} deg; mean over "
+          f"{BATCH} streams rmse_pos={m['rmse_pos'].mean().item():.4f} m; in-state planes at most {n_planes}, "
+          f"plane constraint updates {n_constr}, delayed-init candidates {n_init} (counted before the 2 s delay "
+          f"gate, as in JAX); plane labels fed on {labelled} stream-frames ({n_labels} labels); "
+          f"msckf features per frame (mean) {cnt[:, :, 3].mean():.2f}")
+    if not rmse0 < 0.5:
+        raise RuntimeError(f"stream 0 position RMSE {rmse0:.3f} m is not below 0.5 m")
+    # The plane work this scene gives in 80 frames: the host detector's labels
+    # reach the step and the delayed init finds candidates. No plane passes
+    # the init gates after the 2 s delay in 80 frames, in the JAX package
+    # too on the same inputs (PERF.md §6); the plane path (phase 5)
+    # holds plane states and constraint updates.
+    if labelled == 0 or n_init == 0:
+        raise RuntimeError("no plane label reached the step or no delayed-init candidate on any stream")
+
+    # Streams 0-1 through the port on the CPU: frontend f32, filter f64.
+    t = time.time()
+    cpu_eng = VioEngine.from_config(run.cfg, device="cpu")
+    cdrv, cst, cbank, cfev = vision_driver(run, cpu_eng, 2, "cpu", torch.float64)
+    cq, cp, cpulls = [], [], []
+    for i in range(1, VISION_REF + 1):
+        cst, cbank, cfev, cout = cdrv.step_batch(cst, cbank, cfev, run.ring[i - 1][:2].cpu(),
+                                                 *_imu_window(run, i, slice(0, 2)))
+        cq.append(cout.q)
+        cp.append(cout.p)
+        if i > 1:
+            cpulls.append(cdrv.last_pull.copy())
+    cdrv.flush_stream()
+    cdrv.close()
+    cpulls.append(cdrv.last_pull.copy())
+    card = np.stack(pulls_ref[:VISION_REF])[:, :, :-3]         # [T, 2, cap, 8]
+    ref = np.stack(cpulls)[:, :, :-3]
+    same = (card[..., 0] == ref[..., 0]) & (card[..., 3] == ref[..., 3])
+    frac = same.mean()
+    dp = (p[:2, :VISION_REF].double().cpu() - torch.stack(cp, 1)).abs().max().item()
+    dq = (q[:2, :VISION_REF].double().cpu() - torch.stack(cq, 1)).abs().max().item()
+    print(f"{tag} card f32 vs CPU (frontend f32, filter f64; {time.time() - t:.1f} s on the CPU), 2 streams x "
+          f"{VISION_REF} frames: ids and valid equal on {int(same.sum())} of {same.size} slot-frames "
+          f"({100 * frac:.2f}%); max|dp|={dp:.3e} m max|dq|={dq:.3e}")
+    if not (frac >= 0.99 and dp <= 1e-2 and dq <= 1e-3):
+        raise RuntimeError("the card's vision run disagrees with the CPU reference")
+    info = dict(stream_frames_per_s=BATCH * VISION_FRAMES / wall, wall_s=wall, n_frames=VISION_FRAMES,
+                run=run, snapshot=snapshot)
+    return VISION_FRAMES, launches, info
+
+
+def profile_vision(info: dict, n: int = 5):
+    """Where a vision frame's time goes: n frames after the warm-up, from its
+    driver and state, under torch.profiler (``report_profile``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tag = "[profile vision]"
+    run = info["run"]
+    drv, st, bank, fev = info["snapshot"]
+    frame_wall_ms = 1e3 * info["wall_s"] / info["n_frames"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        for i in range(VISION_WARM + 1, VISION_WARM + n + 1):
+            st, bank, fev, _ = drv.step_batch(st, bank, fev, run.ring[i - 1], *_imu_window(run, i))
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t) * 1e3
+    drv.flush_stream()
+    drv.close()
+    report_profile(tag, prof, VISION_RANGES, VISION_WARM + 1, n, frame_wall_ms, wall_ms)
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card", file=sys.stderr)
         return 2
+    from ov_plane_tpu_torch import native
     from ov_plane_tpu_torch.ops import kernels
     from ov_plane_tpu_torch.utils.torchenv import resolve_device
 
@@ -578,9 +850,11 @@ def main() -> int:
 
     t = time.time()
     earlier_build = start_earlier_build(kernels)
+    native.build("delaunay")          # g++, while nvcc builds the yardstick
     reports = kernels.build()
     earlier_kernel = earlier_build()
-    print(f"[build] {len(reports)} kernels and the earlier one built with nvcc in {time.time() - t:.2f} s")
+    print(f"[build] {len(reports)} kernels and the earlier one built with nvcc, the host Delaunay with g++, "
+          f"in {time.time() - t:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -589,9 +863,15 @@ def main() -> int:
     rows = time_kernels(kernels, check_kernels(kernels), earlier_kernel)
     results = {}
     for spec in PATHS:
+        t = time.time()
         n_frames, launches, info = drive_path(spec)
         profile_frames(spec, info)
         results[spec.name] = (n_frames, launches, info)
+        print(f"[{spec.name}] phase took {time.time() - t:.1f} s")
+    t = time.time()
+    results["vision"] = drive_vision()
+    profile_vision(results["vision"][2])
+    print(f"[vision] phase took {time.time() - t:.1f} s")
 
     meta = {
         "gram_reduce": ("ov_plane_tpu_torch/csrc/gram_reduce.cu",
@@ -601,13 +881,14 @@ def main() -> int:
     }
     out = []
     for name, (source, replaces) in meta.items():
-        # Top level: the plane path (this slice's path) at LEAD's shape; per
-        # path: its launches in its run and each of its shapes' numbers.
+        # Top level: the vision path (the system's main path) and LEAD's
+        # shape; per path: its launches in its run and each of its shapes'
+        # numbers.
         paths = {p: dict(launches=results[p][1][name], frames=results[p][0],
                          shapes=[dict(B=B, M=M, D=D, **rows[(name, (B, M, D))]) for B, M, D in shs[name]])
                  for p, shs in PATH_SHAPES.items()}
         out.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                        launches=results["plane"][1][name], shape=list(LEAD[name]), **rows[(name, LEAD[name])],
+                        launches=results["vision"][1][name], shape=list(LEAD[name]), **rows[(name, LEAD[name])],
                         paths=paths))
     for p, (n_frames, launches, info) in results.items():
         print(f"[{p}] stream-frames/s {info['stream_frames_per_s']:.2f} over {n_frames} frames")

@@ -8,7 +8,10 @@ once from ``build_sim``; the generator lives in ``tests/test_torch_scene.py``):
 * ``data/sim_config1_truth.npz`` (:data:`SCENE_PATH`): the bench scene, 30 s,
   60 free points;
 * ``data/sim_planes_truth.npz`` (:data:`PLANE_SCENE_PATH`): the M-PL scene,
-  30 s, 40 free points + 40 on planes, with the true plane CPs.
+  30 s, 40 free points + 40 on planes, with the true plane CPs;
+* ``data/sim_vision_truth.npz`` (:data:`VISION_SCENE_PATH`): the vision
+  bench's scene, 6 s at 20 Hz, with the room's planes (corners, normals,
+  offsets) that ``frontend.synthetic.render_frame_textured`` draws.
 
 :func:`apply_noise` draws B independent noise instances on top of a scene
 with a ``torch.Generator`` (Simulator.cpp:355-382 bias walks + white IMU
@@ -30,6 +33,7 @@ from ov_plane_tpu_torch.utils.torchenv import resolve_device
 
 SCENE_PATH = Path(__file__).resolve().parents[1] / "data" / "sim_config1_truth.npz"
 PLANE_SCENE_PATH = Path(__file__).resolve().parents[1] / "data" / "sim_planes_truth.npz"
+VISION_SCENE_PATH = Path(__file__).resolve().parents[1] / "data" / "sim_vision_truth.npz"
 
 
 class SimTruth(NamedTuple):
@@ -48,6 +52,9 @@ class SimTruth(NamedTuple):
     gt_p: torch.Tensor         # [Tc, 3]
     gt_v: torch.Tensor         # [Tc, 3]
     plane_cp: torch.Tensor | None = None  # [P, 3] true plane CPs (plane scenes)
+    plane_corners: torch.Tensor | None = None  # [P, 4, 3] room planes (vision scene): tl, tr, bl, br
+    plane_normal: torch.Tensor | None = None   # [P, 3] unit normals, n·x = d
+    plane_d: torch.Tensor | None = None        # [P]
 
 
 class SimData(NamedTuple):
@@ -80,8 +87,10 @@ class NoiseParams(NamedTuple):
     dt_imu: float
 
 
-def truth_from_arrays(arrays, dtype=torch.float64, device="cpu") -> SimTruth:
+def truth_from_arrays(arrays, dtype=torch.float64, device="cuda") -> SimTruth:
     """SimTruth from a mapping of numpy arrays (the .npz keys / JAX field names)."""
+    device = resolve_device(device)
+
     def f(k):
         return torch.as_tensor(np.array(arrays[k]), dtype=dtype, device=device)
 
@@ -94,16 +103,15 @@ def truth_from_arrays(arrays, dtype=torch.float64, device="cpu") -> SimTruth:
         obs_id=i("obs_id"), obs_uv_true=f("obs_uv_true"), obs_plane=i("obs_plane"),
         imu_window_start=np.asarray(arrays["imu_window_start"]).astype(np.int64),
         gt_q=f("gt_q"), gt_p=f("gt_p"), gt_v=f("gt_v"),
-        plane_cp=f("plane_cp") if "plane_cp" in arrays else None,
+        **{k: f(k) for k in ("plane_cp", "plane_corners", "plane_normal", "plane_d") if k in arrays},
     )
 
 
 def load_scene(path=SCENE_PATH, dtype=torch.float64, device="cuda") -> SimTruth:
-    """Load a committed noiseless scene (:data:`SCENE_PATH` or
-    :data:`PLANE_SCENE_PATH`) onto ``device``."""
-    dev = resolve_device(device)
+    """Load a committed noiseless scene (:data:`SCENE_PATH`,
+    :data:`PLANE_SCENE_PATH` or :data:`VISION_SCENE_PATH`) onto ``device``."""
     with np.load(path) as z:
-        return truth_from_arrays(z, dtype, dev)
+        return truth_from_arrays(z, dtype, device)
 
 
 def _interp(ts: torch.Tensor, vals: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import torch
 
 from ov_plane_tpu_torch.state.layout import StateLayout
+from ov_plane_tpu_torch.utils.torchenv import resolve_device
 
 
 def _where(pred: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -68,8 +69,9 @@ class VioState(TensorTree):
     cov: torch.Tensor        # [B, D, D]
 
     @classmethod
-    def create(cls, layout: StateLayout, batch: int, dtype=torch.float64, device="cpu") -> "VioState":
+    def create(cls, layout: StateLayout, batch: int, dtype=torch.float64, device="cuda") -> "VioState":
         B, K, L, P = batch, layout.max_clones, layout.max_slam, layout.max_planes
+        device = resolve_device(device)
         kw = dict(dtype=dtype, device=device)
         unit_q = torch.tensor([0.0, 0.0, 0.0, 1.0], **kw)
         imu = torch.zeros(B, 16, **kw)

@@ -1,10 +1,10 @@
 """Configuration tree of the PyTorch port.
 
-An own copy of the part of ``ov_plane_tpu/utils/config.py`` that the batched
-filter reads (the point-MSCKF path and the plane filter stages): the same
-dataclass names, field names and defaults, so one set of overrides
-configures both packages. Options of the later slices (plane frontend, SLAM
-updaters, ZUPT, YAML loading) are not carried yet.
+An own copy of the part of ``ov_plane_tpu/utils/config.py`` that the port
+reads (the point-MSCKF path, the plane filter stages and the fused vision
+frontend): the same dataclass names, field names and defaults, so one set of
+overrides configures both packages. Options of the later slices (SLAM
+updaters, ZUPT, ArUco, YAML loading) are not carried yet.
 """
 
 from __future__ import annotations
@@ -110,11 +110,41 @@ class FeatureInitializerOptions:
 
 
 @dataclass
-class SimOptions:
-    """Simulator options (reference: VioManagerOptions.h sim_* block); the
-    port's scene is committed, so only the IMU rate of its noise is read."""
+class TrackPlaneOptions:
+    """Plane-frontend thresholds (reference: track_plane/TrackPlaneOptions.h:38-81)."""
 
+    max_tri_side_px: float = 200.0
+    max_norm_count: int = 8
+    max_norm_avg_max: float = 20.0
+    max_norm_avg_var: float = 20.0
+    max_norm_deg: float = 25.0
+    max_dist_between_z: float = 0.30
+    max_pairwise_px: float = 100.0
+    min_norms: int = 5
+    check_old_feats: bool = True
+    filter_num_feat: int = 4
+    filter_z_thresh: float = 5.0
+    # Incremental whole-track triangulation gates (TrackPlaneOptions.h:77-80).
+    feat_init_min_obs: int = 4
+    min_dist: float = 0.10
+    max_dist: float = 60.0
+    max_cond_number: float = 8000.0
+    # Whole-track ray-intersection RMS gate: max(rel · depth, abs) meters.
+    max_ray_rms_rel: float = 0.03
+    max_ray_rms_abs: float = 0.10
+
+
+@dataclass
+class SimOptions:
+    """Simulator options (reference: VioManagerOptions.h sim_* block). The
+    port's scenes are committed, so only the IMU rate of its noise is read;
+    the other fields name the scene a configuration was generated with."""
+
+    freq_cam: float = 10.0
     freq_imu: float = 400.0
+    min_feature_gen_distance: float = 2.0
+    max_feature_gen_distance: float = 5.0
+    traj_duration: float = 60.0
 
 
 @dataclass
@@ -144,6 +174,7 @@ class VioConfig:
     imu_noises: NoiseManager = field(default_factory=NoiseManager)
     msckf_options: UpdaterOptions = field(default_factory=lambda: UpdaterOptions(chi2_multipler=5.0, sigma_pix=1.0))
     featinit: FeatureInitializerOptions = field(default_factory=FeatureInitializerOptions)
+    trackplane: TrackPlaneOptions = field(default_factory=TrackPlaneOptions)
     sim: SimOptions = field(default_factory=SimOptions)
     tpu: TpuOptions = field(default_factory=TpuOptions)
 
@@ -153,7 +184,18 @@ class VioConfig:
     cam_intrinsics: List[float] = field(
         default_factory=lambda: [458.654, 457.296, 367.215, 248.375, -0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]
     )
+    cam_wh: List[int] = field(default_factory=lambda: [752, 480])
     cam_extrinsics: List[float] = field(default_factory=lambda: [0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0])
+
+    # Frontend knobs (reference: VioManagerOptions tracker block).
+    num_pts: int = 150
+    num_pts_plane: int = 150
+    fast_threshold: int = 15
+    grid_x: int = 20
+    grid_y: int = 20
+    min_px_dist: int = 15
+    histogram_method: str = "HISTOGRAM"  # NONE, HISTOGRAM, CLAHE
+
     use_aruco: bool = False
     try_zupt: bool = False
 
@@ -168,6 +210,7 @@ def sim_config(**overrides) -> VioConfig:
     cfg.state.max_slam_features = 50
     cfg.msckf_options.chi2_multipler = 99999
     cfg.cam_model = "radtan"
+    cfg.cam_wh = [752, 480]
     cfg.cam_intrinsics = [458.654, 457.296, 367.215, 248.375, -0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]
     cfg.cam_extrinsics = [0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]
     for key, value in overrides.items():
@@ -222,4 +265,45 @@ def plane_config() -> VioConfig:
     cfg.tpu.max_planes = 8
     cfg.tpu.max_planes_per_frame = 8
     cfg.tpu.use_info_compression = True
+    return cfg
+
+
+def vision_config(n_frames: int = 80) -> VioConfig:
+    """The fused vision path of the repo's bench (``bench.py`` vision mode,
+    its headline workload): 640×480 radtan camera rendered at 20 Hz over a
+    6 s room scan, planes on with point-on-plane constraints, no SLAM
+    landmarks, calibration off, information-form compression, bank 128, 64
+    feature slots per frame, 24 features per update, FAST top-up to 55
+    features. K = 12 clone slots and 8 plane slots give D = 114. The same
+    values as the bench sets them (the bench's ``slam_options.sigma_pix``
+    has no field here: SLAM is off). Its scene is the committed one
+    (``sim.simulator.VISION_SCENE_PATH``)."""
+    cfg = sim_config()
+    cfg.sim.traj_duration = max(6.0, (n_frames + 2) / 20.0)
+    cfg.sim.freq_cam = 20.0
+    cfg.state.max_slam_features = 0
+    cfg.state.use_plane_constraint = True
+    cfg.state.use_plane_slam_feats = True
+    cfg.state.plane_init_min_feat = 8
+    cfg.state.do_calib_camera_pose = False
+    cfg.state.do_calib_camera_intrinsics = False
+    cfg.state.do_calib_camera_timeoffset = False
+    cfg.num_pts = 15
+    cfg.num_pts_plane = 40
+    cfg.cam_wh = [640, 480]
+    cfg.cam_intrinsics = [300.0, 300.0, 320.0, 240.0, 0.0, 0.0, 0.0, 0.0]
+    cfg.histogram_method = "NONE"
+    cfg.tpu.max_features = 128
+    cfg.tpu.max_obs_per_frame = 64
+    cfg.tpu.max_msckf_update = 24
+    cfg.tpu.use_info_compression = True
+    cfg.trackplane.min_norms = 3
+    cfg.trackplane.max_norm_avg_var = 30.0
+    cfg.trackplane.max_norm_avg_max = 30.0
+    cfg.msckf_options.chi2_multipler = 5.0
+    cfg.sim.min_feature_gen_distance = 0.7
+    cfg.sim.max_feature_gen_distance = 2.0
+    cfg.state.plane_init_max_cond = 150.0
+    cfg.state.plane_msckf_max_cond = 150.0
+    cfg.msckf_options.sigma_pix = 2.0
     return cfg

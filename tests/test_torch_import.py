@@ -57,7 +57,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         VioEngine.from_config(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         FeatureBank.create(cfg.tpu.max_features, 12, batch=1)
-    for path in (simulator.SCENE_PATH, simulator.PLANE_SCENE_PATH):
+    for path in (simulator.SCENE_PATH, simulator.PLANE_SCENE_PATH, simulator.VISION_SCENE_PATH):
         with pytest.raises(RuntimeError, match="CUDA"):
             simulator.load_scene(path)
         assert simulator.load_scene(path, device="cpu").imu_t.device.type == "cpu"
@@ -99,3 +99,84 @@ def test_planes_need_global_3d_features():
         setattr(cfg.state, key, "ANCHORED_MSCKF_INVERSE_DEPTH")
         with pytest.raises(ValueError, match="GLOBAL_3D"):
             VioEngine.from_config(cfg, device="cpu")
+
+
+def test_fused_frontend_imports_no_jax():
+    code = ("import sys, ov_plane_tpu_torch.frontend.fused, ov_plane_tpu_torch.native, ov_plane_tpu_torch.convert\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ov_plane_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    for m in ("frontend.fused", "frontend.klt", "frontend.fast", "frontend.ransac", "frontend.imageproc",
+              "frontend.synthetic", "frontend.wire_guard", "frontend.plane_track", "frontend.plane_track_batch",
+              "native", "convert"):
+        assert f"ov_plane_tpu_torch.{m}" in MODULES
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reads_no_ovp_environment_variable(path):
+    """The JAX driver's OVP_* switches are constructor arguments in the port."""
+    assert "OVP_" not in path.read_text()
+
+
+def test_vision_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    from ov_plane_tpu_torch import convert
+    from ov_plane_tpu_torch.state.vio_state import VioState
+    from ov_plane_tpu_torch.utils.config import vision_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    eng = VioEngine.from_config(vision_config(), device="cpu")
+    assert eng.layout.dim == 114 and eng.max_msckf_batch == 40
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VioState.create(eng.layout, 1)
+    assert VioState.create(eng.layout, 1, device="cpu").cov.device.type == "cpu"
+    import numpy as np
+    with np.load(simulator.VISION_SCENE_PATH) as z:
+        arrays = {k: z[k] for k in z.files}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulator.truth_from_arrays(arrays)
+    assert simulator.truth_from_arrays(arrays, device="cpu").plane_corners.shape[1:] == (4, 3)
+    st = {k: v.numpy() for k, v in VioState.create(eng.layout, 1, device="cpu").tensors().items()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.state_from_arrays(st, eng.layout)
+    bank = {k: v.numpy() for k, v in FeatureBank.create(8, 12, 1, device="cpu").tensors().items()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.bank_from_arrays(bank)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.frontend_from_arrays({"pyr": {"padded": [], "grads": []}})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.sim_from_streams([arrays])
+
+
+def test_native_delaunay_builds_and_raises_on_failure(tmp_path):
+    import numpy as np
+
+    from ov_plane_tpu_torch import native
+
+    tris = native.delaunay(np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [0.5, 0.4]]))
+    assert tris.shape == (4, 3) and tris.dtype == np.int32
+    assert native.delaunay(np.zeros((2, 2))).shape == (0, 3)
+    lib = native.lib_path("delaunay")
+    assert lib.exists() and lib.parent == ROOT / "build" / "ov_plane_tpu_torch"
+    # A source that does not compile raises: there is no fallback triangulation.
+    (tmp_path / "broken.cpp").write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native.build("broken", src_dir=tmp_path, build_dir=tmp_path / "build")
+    assert "scipy" not in (PACKAGE / "native" / "__init__.py").read_text()
+    assert (PACKAGE / "native" / "delaunay.cpp").read_bytes() == (ROOT / "ov_plane_tpu" / "native" /
+                                                                    "delaunay.cpp").read_bytes()
+
+
+def test_wire_guard_copy_resolves_as_the_jax_one():
+    import numpy as np
+
+    from ov_plane_tpu.frontend import wire_guard as j_wg
+    from ov_plane_tpu_torch.frontend import wire_guard as t_wg
+
+    rng = np.random.default_rng(0)
+    lattice = (np.rint(rng.random((2, 8, 8)) * 255) / 255).astype(np.float32)
+    for img in (lattice, lattice + 1e-2, lattice.astype(np.uint8)):
+        for req in (("auto", "auto"), ("u8", "auto"), ("auto", "slice")):
+            ours, theirs = t_wg.resolve_wire_and_sampler(img, *req), j_wg.resolve_wire_and_sampler(img, *req)
+            assert ours[:2] == theirs[:2] and ours[2]["u8_lossless"] == theirs[2]["u8_lossless"]

@@ -104,7 +104,7 @@ def state_arrays(st):
 
 
 def port_state(jstates, lay):
-    return convert.state_from_arrays(convert.stack_streams([state_arrays(s) for s in jstates]), lay)
+    return convert.state_from_arrays(convert.stack_streams([state_arrays(s) for s in jstates]), lay, device="cpu")
 
 
 # --------------------------------------------------------------------------- quat
@@ -443,7 +443,7 @@ def test_triage_breaks_ties_towards_the_lower_row(seed):
     j_eng, cfg, st, jb, cur = _tie_setup(seed)
     eng = manager.VioEngine.from_config(cfg, device="cpu")
     j_sel, j_valid, _, _ = j_manager.triage(j_eng, st, jb, cur, True)
-    bank = convert.bank_from_arrays(convert.stack_streams([_bank_arrays(jb)]))
+    bank = convert.bank_from_arrays(convert.stack_streams([_bank_arrays(jb)]), device="cpu")
     sel, valid = manager.triage(eng, port_state([st], eng.layout), bank, torch.tensor([cur]))
     n_cand = int(np.sum(np.asarray(jb.fid >= 0) & (np.asarray(jb.mask).sum(1) >= 2)
                         & ~np.asarray(jb.mask)[:, cur]))

@@ -4,8 +4,10 @@
 of the bench's simulator scene (``bench.py`` sim mode: 30 s, 60 points, 96
 observation slots); ``sim_planes_truth.npz`` that of the M-PL scene
 (``scripts/run_sweep.py`` ``VARIANTS["M-PL"]``: 30 s, 40 free points + 40
-points on planes), with the true plane CPs. This file is also their
-generator:
+points on planes), with the true plane CPs; ``sim_vision_truth.npz`` that of
+the vision bench (``bench.py`` vision mode: 6 s at 20 Hz, 64 observation
+slots), with the room's planes that the frame renderer draws. This file is
+also their generator:
 
     env JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_scene.py
 """
@@ -17,14 +19,16 @@ import numpy as np
 import pytest
 import torch
 
-from ov_plane_tpu.sim.simulator import build_sim
+from ov_plane_tpu.sim.simulator import build_sim, generate_planes
+from ov_plane_tpu.sim.trajectory import get_trajectory
 from ov_plane_tpu.utils.config import sim_config as j_sim_config
 from ov_plane_tpu_torch.sim import simulator as tsim
-from ov_plane_tpu_torch.utils.config import plane_config, slice_config
+from ov_plane_tpu_torch.utils.config import plane_config, slice_config, vision_config
 
 FIELDS = ("imu_t", "imu_w_true", "imu_a_true", "cam_t", "cam_t_imu", "obs_id", "obs_uv_true",
           "obs_plane", "imu_window_start", "gt_q", "gt_p", "gt_v")
 PLANE_FIELDS = FIELDS + ("plane_cp",)
+VISION_FIELDS = FIELDS + ("plane_corners", "plane_normal", "plane_d")
 
 
 def _bench_cfg():
@@ -64,10 +68,51 @@ def _plane_cfg():
     return cfg
 
 
+def _vision_cfg():
+    """The JAX configuration of bench.py's vision mode (bench.py:121-163),
+    80 frames."""
+    cfg = j_sim_config()
+    cfg.sim.traj_duration = max(6.0, (80 + 2) / 20.0)
+    cfg.sim.freq_cam = 20.0
+    cfg.state.max_slam_features = 0
+    cfg.state.use_plane_constraint = True
+    cfg.state.use_plane_slam_feats = True
+    cfg.state.plane_init_min_feat = 8
+    cfg.state.do_calib_camera_pose = False
+    cfg.state.do_calib_camera_intrinsics = False
+    cfg.state.do_calib_camera_timeoffset = False
+    cfg.num_pts = 15
+    cfg.num_pts_plane = 40
+    cfg.cam_wh = [640, 480]
+    cfg.cam_intrinsics = [300.0, 300.0, 320.0, 240.0, 0.0, 0.0, 0.0, 0.0]
+    cfg.histogram_method = "NONE"
+    cfg.tpu.max_features = 128
+    cfg.tpu.max_obs_per_frame = 64
+    cfg.tpu.max_msckf_update = 24
+    cfg.tpu.use_info_compression = True
+    cfg.trackplane.min_norms = 3
+    cfg.trackplane.max_norm_avg_var = 30.0
+    cfg.trackplane.max_norm_avg_max = 30.0
+    cfg.msckf_options.chi2_multipler = 5.0
+    cfg.sim.min_feature_gen_distance = 0.7
+    cfg.sim.max_feature_gen_distance = 2.0
+    cfg.state.plane_init_max_cond = 150.0
+    cfg.state.plane_msckf_max_cond = 150.0
+    cfg.msckf_options.sigma_pix = 2.0
+    cfg.slam_options.sigma_pix = 2.0
+    return cfg
+
+
 def scene_arrays(cfg=None, fields=FIELDS) -> dict:
     cfg = cfg or _bench_cfg()
     sim = build_sim(cfg, max_obs=cfg.tpu.max_obs_per_frame)
-    out = {k: np.asarray(getattr(sim, k)) for k in fields}
+    out = {k: np.asarray(getattr(sim, k)) for k in fields if not k.startswith("plane_") or k == "plane_cp"}
+    if "plane_corners" in fields:
+        # The room the bench renders (bench.py:166-167).
+        _, traj_pos, _ = get_trajectory(cfg.sim)
+        planes = generate_planes(traj_pos, cfg.sim.min_feature_gen_distance)
+        out.update(plane_corners=np.asarray(planes.corners), plane_normal=np.asarray(planes.normal),
+                   plane_d=np.asarray(planes.d))
     out["obs_id"] = out["obs_id"].astype(np.int32)
     out["obs_plane"] = out["obs_plane"].astype(np.int32)
     out["imu_window_start"] = out["imu_window_start"].astype(np.int32)
@@ -107,6 +152,21 @@ def test_committed_plane_scene_matches_build_sim():
     assert int(labels.max()) < truth.plane_cp.shape[0]
 
 
+def test_committed_vision_scene_matches_build_sim():
+    fresh = scene_arrays(_vision_cfg(), VISION_FIELDS)
+    _check_committed(tsim.VISION_SCENE_PATH, VISION_FIELDS, fresh)
+    truth = tsim.load_scene(tsim.VISION_SCENE_PATH, device="cpu")
+    cfg = vision_config()
+    assert truth.obs_id.shape[1] == cfg.tpu.max_obs_per_frame
+    assert truth.cam_t.shape[0] >= 81          # the bench's 80 frames after the first
+    np.testing.assert_allclose(np.diff(truth.cam_t.numpy()), 1.0 / cfg.sim.freq_cam, atol=1e-9)
+    P = truth.plane_corners.shape[0]
+    assert truth.plane_corners.shape == (P, 4, 3) and truth.plane_normal.shape == (P, 3) and P >= 4
+    # Each plane's corners lie on it (n·x = d).
+    on = torch.einsum("pki,pi->pk", truth.plane_corners, truth.plane_normal) - truth.plane_d[:, None]
+    assert on.abs().max() < 1e-9
+
+
 def test_scene_shape_is_the_bench_scene():
     truth = tsim.load_scene(device="cpu")
     cfg = slice_config()
@@ -128,7 +188,8 @@ if __name__ == "__main__":
 
     jax.config.update("jax_enable_x64", True)
     for path, cfg, fields in ((tsim.SCENE_PATH, _bench_cfg(), FIELDS),
-                              (tsim.PLANE_SCENE_PATH, _plane_cfg(), PLANE_FIELDS)):
+                              (tsim.PLANE_SCENE_PATH, _plane_cfg(), PLANE_FIELDS),
+                              (tsim.VISION_SCENE_PATH, _vision_cfg(), VISION_FIELDS)):
         arrays = scene_arrays(cfg, fields)
         np.savez_compressed(path, **arrays)
         print(f"wrote {path} ({Path(path).stat().st_size} bytes, "

@@ -87,7 +87,7 @@ def test_slice_matches_jax_run_sequence(streams, info):
 
     cfg = _configure(sim_config(), info)
     eng = VioEngine.from_config(cfg, device="cpu")
-    sim = convert.sim_from_streams([{k: np.asarray(v) for k, v in s._asdict().items()} for s in streams])
+    sim = convert.sim_from_streams([{k: np.asarray(v) for k, v in s._asdict().items()} for s in streams], device="cpu")
     state = init_state_with_gt(eng, cfg, t0=sim.cam_t_imu[0].expand(2), q0=sim.gt_q[0].expand(2, 4),
                                p0=sim.gt_p[0].expand(2, 3), v0=sim.gt_v[0].expand(2, 3),
                                bg0=sim.gt_bg_cam[:, 0], ba0=sim.gt_ba_cam[:, 0], device="cpu")
