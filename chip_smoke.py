@@ -776,7 +776,8 @@ def drive_vision():
     # The plane work this scene gives in 80 frames: the host detector's labels
     # reach the step and the delayed init finds candidates. No plane passes
     # the init gates after the 2 s delay in 80 frames, in the JAX package
-    # too on the same inputs (PERF.md §6); the plane path (phase 5)
+    # too on the bench's own inputs (the plane witness of
+    # tests/test_torch_fused.py, PERF.md §6); the plane path (phase 5)
     # holds plane states and constraint updates.
     if labelled == 0 or n_init == 0:
         raise RuntimeError("no plane label reached the step or no delayed-init candidate on any stream")

@@ -34,6 +34,7 @@ from torch.profiler import record_function
 from ov_plane_tpu_torch.frontend import fast as ffast
 from ov_plane_tpu_torch.frontend import imageproc as ip
 from ov_plane_tpu_torch.frontend import klt as fklt
+from ov_plane_tpu_torch.frontend.plane_track_batch import PlaneTrackerBatch
 from ov_plane_tpu_torch.frontend.ransac import RansacOptions, gyro_ransac, integrate_gyro
 from ov_plane_tpu_torch.models import feature_bank as fb
 from ov_plane_tpu_torch.models.manager import FrameData, VioEngine, step
@@ -400,12 +401,14 @@ class FusedVisionDriver:
     The JAX driver's environment switches are constructor arguments here,
     with the same defaults: ``klt_fb`` (forward-backward KLT check),
     ``sampler`` and ``img_wire`` ('auto' resolves against the first image,
-    ``wire_guard.py``), ``plane_threads`` (a thread pool for the per-stream
-    Delaunay calls; 0 or 1 = serial) and ``plane_batch`` (the cross-stream
-    batched detector for B > 1)."""
+    ``wire_guard.py``) and ``plane_threads`` (a thread pool for the
+    per-stream Delaunay calls; 0 or 1 = serial). The host detector is the
+    cross-stream ``PlaneTrackerBatch`` at every B; the JAX driver's switch
+    to one ``PlaneTracker`` per stream (the same result) has no
+    counterpart."""
 
     def __init__(self, cfg, eng: VioEngine, batch: int, klt_fb: bool = False, sampler: str = "auto",
-                 img_wire: str = "auto", plane_threads: int = 0, plane_batch: bool = True):
+                 img_wire: str = "auto", plane_threads: int = 0):
         if batch < 1:
             raise ValueError("the driver steps a batch of at least one stream (step_stream is not ported)")
         cap = cfg.tpu.max_obs_per_frame
@@ -436,16 +439,7 @@ class FusedVisionDriver:
             import concurrent.futures
 
             self._plane_pool = concurrent.futures.ThreadPoolExecutor(max_workers=plane_threads)
-        self.batch_tracker = self.trackers = None
-        if n > 1 and plane_batch:
-            from ov_plane_tpu_torch.frontend.plane_track_batch import PlaneTrackerBatch
-
-            self.batch_tracker = PlaneTrackerBatch(n, cfg.trackplane, capacity=max(128, 2 * cap),
-                                                   pool=self._plane_pool)
-        else:
-            from ov_plane_tpu_torch.frontend.plane_track import PlaneTracker
-
-            self.trackers = [PlaneTracker(cfg.trackplane) for _ in range(n)]
+        self.tracker = PlaneTrackerBatch(n, cfg.trackplane, capacity=max(128, 2 * cap), pool=self._plane_pool)
         Q = self.vopts.merge_slots
         self._label_ids = np.full((n, cap), -1, np.int32)
         self._label_pid = np.full((n, cap), -1, np.int32)
@@ -536,14 +530,7 @@ class FusedVisionDriver:
         ids = np.where(valid, ids, -1)
         ok = ok3 & valid
         with record_function("host.plane_detect"):
-            if self.batch_tracker is not None:
-                results = self.batch_tracker.update_batch(ids, uv, p3, ok, R_GtoC, p_CinG)
-            else:
-                def one(s):
-                    return self.trackers[s].update(ids[s], uv[s], p3[s], ok[s], R_GtoC[s], p_CinG[s])
-
-                streams = range(self.B)
-                results = list(self._plane_pool.map(one, streams) if self._plane_pool else map(one, streams))
+            results = self.tracker.update_batch(ids, uv, p3, ok, R_GtoC, p_CinG)
             for s, (f2p, p2o) in enumerate(results):
                 self._apply_plane_result(s, f2p, p2o)
 

@@ -4,7 +4,8 @@ measured by the JAX package on its own host, not by the port.
 
 Cross-stream batched host plane detector.
 
-``PlaneTracker.update`` (plane_track.py) is one stream's per-frame Delaunay
+``PlaneTracker.update`` (``ov_plane_tpu/frontend/plane_track.py``, which
+the port does not copy) is one stream's per-frame Delaunay
 clustering — already vectorized *within* the frame, but at B=32 replay
 streams the per-call python/numpy overhead (dozens of small GIL-holding array
 ops + the python merge loop) costs ~2.5 ms/stream, and a thread pool cannot
@@ -21,7 +22,9 @@ the GIL and runs on a thread pool, and the ~N-iteration plane-merge loop) at
 python level.
 
 Semantics are EXACTLY ``PlaneTracker.update`` per stream — asserted
-element-for-element in tests/test_plane_track_batch.py. Reference:
+element-for-element against the JAX package's ``PlaneTracker`` in
+tests/test_torch_frontend.py (at B = 1 too: the port's driver uses this
+class for every batch size). Reference:
 TrackPlane.cpp:580-1121 (perform_plane_detection_monocular).
 """
 

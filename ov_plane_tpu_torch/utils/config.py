@@ -136,15 +136,10 @@ class TrackPlaneOptions:
 
 @dataclass
 class SimOptions:
-    """Simulator options (reference: VioManagerOptions.h sim_* block). The
-    port's scenes are committed, so only the IMU rate of its noise is read;
-    the other fields name the scene a configuration was generated with."""
+    """Simulator options (reference: VioManagerOptions.h sim_* block); the
+    port's scene is committed, so only the IMU rate of its noise is read."""
 
-    freq_cam: float = 10.0
     freq_imu: float = 400.0
-    min_feature_gen_distance: float = 2.0
-    max_feature_gen_distance: float = 5.0
-    traj_duration: float = 60.0
 
 
 @dataclass
@@ -268,19 +263,19 @@ def plane_config() -> VioConfig:
     return cfg
 
 
-def vision_config(n_frames: int = 80) -> VioConfig:
+def vision_config() -> VioConfig:
     """The fused vision path of the repo's bench (``bench.py`` vision mode,
-    its headline workload): 640×480 radtan camera rendered at 20 Hz over a
-    6 s room scan, planes on with point-on-plane constraints, no SLAM
+    its headline workload): 640×480 radtan camera, planes on with
+    point-on-plane constraints, no SLAM
     landmarks, calibration off, information-form compression, bank 128, 64
     feature slots per frame, 24 features per update, FAST top-up to 55
     features. K = 12 clone slots and 8 plane slots give D = 114. The same
     values as the bench sets them (the bench's ``slam_options.sigma_pix``
     has no field here: SLAM is off). Its scene is the committed one
-    (``sim.simulator.VISION_SCENE_PATH``)."""
+    (``sim.simulator.VISION_SCENE_PATH``: a 6 s room scan, camera at 20 Hz),
+    generated with the bench's simulator settings by
+    ``tests/test_torch_scene.py``."""
     cfg = sim_config()
-    cfg.sim.traj_duration = max(6.0, (n_frames + 2) / 20.0)
-    cfg.sim.freq_cam = 20.0
     cfg.state.max_slam_features = 0
     cfg.state.use_plane_constraint = True
     cfg.state.use_plane_slam_feats = True
@@ -301,8 +296,6 @@ def vision_config(n_frames: int = 80) -> VioConfig:
     cfg.trackplane.max_norm_avg_var = 30.0
     cfg.trackplane.max_norm_avg_max = 30.0
     cfg.msckf_options.chi2_multipler = 5.0
-    cfg.sim.min_feature_gen_distance = 0.7
-    cfg.sim.max_feature_gen_distance = 2.0
     cfg.state.plane_init_max_cond = 150.0
     cfg.state.plane_msckf_max_cond = 150.0
     cfg.msckf_options.sigma_pix = 2.0

@@ -108,7 +108,7 @@ def test_fused_frontend_imports_no_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
     for m in ("frontend.fused", "frontend.klt", "frontend.fast", "frontend.ransac", "frontend.imageproc",
-              "frontend.synthetic", "frontend.wire_guard", "frontend.plane_track", "frontend.plane_track_batch",
+              "frontend.synthetic", "frontend.wire_guard", "frontend.plane_track_batch",
               "native", "convert"):
         assert f"ov_plane_tpu_torch.{m}" in MODULES
 

@@ -159,7 +159,7 @@ def test_committed_vision_scene_matches_build_sim():
     cfg = vision_config()
     assert truth.obs_id.shape[1] == cfg.tpu.max_obs_per_frame
     assert truth.cam_t.shape[0] >= 81          # the bench's 80 frames after the first
-    np.testing.assert_allclose(np.diff(truth.cam_t.numpy()), 1.0 / cfg.sim.freq_cam, atol=1e-9)
+    np.testing.assert_allclose(np.diff(truth.cam_t.numpy()), 1.0 / _vision_cfg().sim.freq_cam, atol=1e-9)
     P = truth.plane_corners.shape[0]
     assert truth.plane_corners.shape == (P, 4, 3) and truth.plane_normal.shape == (P, 3) and P >= 4
     # Each plane's corners lie on it (n·x = d).
