@@ -11,7 +11,7 @@ Phases (any failure raises and the exit code is nonzero):
    sweep of shapes (SWEEP: tile, chunk and range edges, empty inputs, masked
    rows, a data pointer 4 bytes off 16-byte alignment), in f32 and f64, for
    tolerance, exact symmetry and bitwise-equal repeated calls; then time, at
-   each path's f32 shapes, the kernel, the earlier simple tile kernel
+   each path's f32 shapes (the anchored and tabletop runs' too), the kernel, the earlier simple tile kernel
    (tools/gram_simple.cu, a yardstick built here beside the package's
    kernels), the plain version and one PyTorch library call by
    device time alone (the durations of their CUDA kernels as torch.profiler
@@ -19,17 +19,25 @@ Phases (any failure raises and the exit code is nonzero):
    wrapper's host time per call;
 4. drive the point path: the bench's simulator scene, 64 Monte-Carlo streams
    from a seeded generator, ``VioEngine`` + ``run_sequence`` over its first
-   64 frames in f32, timed after a warm-up that also counts host
+   48 frames in f32, timed after a warm-up that also counts host
    synchronizations inside 9 steps; check the launch counts, finiteness,
    stream 0's accuracy and the agreement of two streams with an f64 CPU run
-   of the port (the per-frame count of features that passed the χ² gate
-   printed beside it); profile 5 frames;
+   of the port (the pose within the path's limits, and the per-frame count
+   of features that passed the χ² gate equal on every stream-frame);
+   profile 5 frames;
 5. drive the plane path the same way (``plane_config``, the committed M-PL
-   scene, its first 160 frames, 64 streams, f32): also the plane states and
+   scene, its first 64 frames, 64 streams, f32): also the plane states and
    constraint updates, every final CP within 0.10 m of a true plane, and the
-   per-frame plane counters against the f64 CPU run (60 frames);
+   per-frame plane counters against the f64 CPU run (40 frames);
+5b. drive the MS-PL path the same way (``ms_pl_config``: SLAM landmarks and
+   planes, D = 147, the M-PL scene, 64 frames): also SLAM inits and
+   landmarks on every stream, landmark updates, and the per-frame SLAM and
+   plane counters against the f64 CPU run (30 frames, the first SLAM inits
+   at frame 20); then 4 streams of MS-PT with anchored landmarks
+   (``ANCHORED_MSCKF_INVERSE_DEPTH``, planes off) step by step until
+   landmarks have moved to a new anchor clone, its launch counts checked;
 6. drive the vision path, the system's main path (``vision_config``, the
-   bench's vision mode): render the 80 frames of the committed vision scene
+   bench's vision mode): render the first 64 frames of the committed vision scene
    on the card, add each stream's fixed pixel noise, quantize to the 8-bit
    lattice and stage the ring on the card; ``VioEngine.from_config`` →
    ``FusedVisionDriver(cfg, eng, 64)`` → ``init_frontend`` → ``stage_image``
@@ -39,6 +47,14 @@ Phases (any failure raises and the exit code is nonzero):
    the host detector's plane labels reaching the step and delayed-init
    candidates over the 64 streams, and streams 0–1 against the port's CPU
    run (frontend f32, filter f64) over 20 frames; a 5-frame profile by range;
+6b. the fused path's plane update on the tabletop scene (``tabletop_config``,
+   the JAX package's plane-firing scene): its 46 frames rendered on the card,
+   16 streams through ``step_batch`` in f32: the launch counts, CP plane
+   inits, planes in the state and constraint updates must appear, and the
+   plane counters of stream 0 and of the first other stream with a plane in
+   the state are held against the port's CPU run (filter f64) of the same
+   inputs: stream 0's first plane at the same frame and its counters equal
+   on at least 44 of 46 frames (the other stream printed);
 7. print the ``{"kernels": [...]}`` line, then the device line last.
 
 Needs a CUDA card: without one it exits with code 2 and prints no result.
@@ -62,6 +78,8 @@ import torch
 
 BATCH = 64
 SEED = 7
+ANCHOR_BATCH = 4        # streams of the anchored-landmark run
+TABLETOP_BATCH = 16     # streams of the tabletop phase
 # Each path's kernel shapes (B, M, D): the gram stacks 40 features × (3·12 − 3)
 # rows over the D state columns (93 on the point path, 114 with 8 plane
 # slots); the downdate closes the classic update with M = D rows, and on the
@@ -70,11 +88,25 @@ SEED = 7
 GRAM_M = 40 * (3 * 12 - 3)
 # The vision path stacks max(max_msckf_update, max_msckf_in_update) = 40
 # features too, and adds the eight merge slots' 3-row downdates per frame.
+# The MS-PL path (D = 147 with 12 landmark slots) adds the SLAM update (its
+# QR-compressed rows, M = D) and the eight delayed-init candidates' leftover
+# rows (M = 3K − 3 = 33) to the plane path's downdates; the anchored run
+# (MS-PT, the same layout) has the classic update, the SLAM update and the
+# eight candidates at its own B. The tabletop phase (16 streams through the
+# fused driver) compresses its classic update by QR, so it launches no gram:
+# the vision path's downdates at its B.
 PATH_SHAPES = {
     "point": {"gram_reduce": [(BATCH, GRAM_M, 93)], "kalman_downdate": [(BATCH, 93, 93)]},
     "plane": {"gram_reduce": [(BATCH, GRAM_M, 114)], "kalman_downdate": [(BATCH, 114, 114), (BATCH, 115, 114)]},
+    "ms-pl": {"gram_reduce": [(BATCH, GRAM_M, 147)],
+              "kalman_downdate": [(BATCH, 147, 147), (BATCH, 148, 147), (BATCH, 33, 147)]},
     "vision": {"gram_reduce": [(BATCH, GRAM_M, 114)],
                "kalman_downdate": [(BATCH, 114, 114), (BATCH, 115, 114), (BATCH, 3, 114)]},
+    "anchored": {"gram_reduce": [(ANCHOR_BATCH, GRAM_M, 147)],
+                 "kalman_downdate": [(ANCHOR_BATCH, 147, 147), (ANCHOR_BATCH, 33, 147)]},
+    "tabletop": {"gram_reduce": [],
+                 "kalman_downdate": [(TABLETOP_BATCH, 114, 114), (TABLETOP_BATCH, 115, 114),
+                                     (TABLETOP_BATCH, 3, 114)]},
 }
 # The shape whose numbers lead each kernel's entry of the {"kernels": ...}
 # line: the gram's, and the downdate's largest (M = D + 1, three of the
@@ -97,14 +129,14 @@ def card_peaks(name: str):
 
 EARLIER_SRC = Path(__file__).resolve().parent / "tools" / "gram_simple.cu"
 FLUSH_BYTES = 256 << 20  # written before each timed call: five times the 50 MB L2
-# The correctness sweep: every D (tile edges 31/32/63/95/96, the filters' 93
-# and 114, the calibrated 195, the largest 300) with every M (empty, one
-# chunk or less, chunk and row-range edges, the filters' 93, 114, 115 and
-# 1320, a long 4096), B cycling over 1, 5, 64. Even entries take H at storage
-# offset 1 (4 bytes off 16-byte alignment in f32), and every entry has a band
-# of zero (masked) rows.
-SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 114, 195, 300)
-SWEEP_M = (0, 1, 3, 93, 94, 114, 115, 300, 792, 1320, 4096)
+# The correctness sweep: every D (tile edges 31/32/63/95/96, the filters' 93,
+# 114 and 147, the calibrated 195, the largest 300) with every M (empty, one
+# chunk or less, chunk and row-range edges, the filters' 33, 93, 114, 115,
+# 147, 148 and 1320, a long 4096), B cycling over 1, 5, 64. Even entries take
+# H at storage offset 1 (4 bytes off 16-byte alignment in f32), and every
+# entry has a band of zero (masked) rows.
+SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 114, 147, 195, 300)
+SWEEP_M = (0, 1, 3, 33, 93, 94, 114, 115, 147, 148, 300, 792, 1320, 4096)
 SWEEP_B = (1, 5, 64)
 SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in enumerate(SWEEP_M)]
 
@@ -329,23 +361,36 @@ class PathSpec(NamedTuple):
     sync_start: int         # first of the 9 steps checked for host synchronizations (then profiled from)
     ref_frames: int         # frames of the f64 CPU reference
     n_frames: int | None = None  # stepped frames (None: the whole scene)
+    pose_limits: tuple = (1e-2, 1e-3)   # card f32 vs CPU f64: max |Δp| in m, max |Δq|
 
 
 PATHS = (
     # Phase 4: the point path on the bench scene (slice 1), cut to its first
-    # 64 frames to pay for the vision path within the time limit (its
-    # 30-frame CPU check unchanged).
-    PathSpec("point", "slice_config", "SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 1}, 4, 30, 64),
+    # 48 frames (its CPU check to 20) to pay for the SLAM and tabletop phases
+    # within the time limit.
+    PathSpec("point", "slice_config", "SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 1}, 4, 20, 48),
     # Phase 5: the plane path on the M-PL scene (slice 3), cut to its first
-    # 160 frames: the downdate closes the classic update, the grouped plane
-    # update and both delayed-init candidates; the first plane state appears
-    # at frame 20.
-    PathSpec("plane", "plane_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 4}, 18, 60, 160),
+    # 64 frames (CPU check 40): the downdate closes the classic update, the
+    # grouped plane update and both delayed-init candidates; the first plane
+    # state appears at frame 20.
+    PathSpec("plane", "plane_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 4}, 18, 40, 64),
+    # Phase 5b: MS-PL on the same scene (slice 5): the plane path's downdates,
+    # the SLAM update and the eight delayed-init candidates; the first SLAM
+    # inits come at frame 20, so 64 frames hold 44 frames of landmarks, the
+    # sync check covers steps 21-29 and the CPU check frames 1-30. Its f32
+    # pose limits are twice the largest card f32 reading over the noise draws
+    # of seeds 7-12 (|Δp| 1.417e-2 m, |Δq| 8.178e-3, before any landmark;
+    # tools/plane_precision.py --path ms-pl --seeds ...): the classic update's
+    # f32 information form at D = 147 carries the error, with the kernels or
+    # with their plain versions alike (PERF.md §6).
+    PathSpec("ms-pl", "ms_pl_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 13}, 21, 30, 64,
+             (3e-2, 1.7e-2)),
 )
 PLANE_COUNTERS = ("n_planes", "n_plane_init", "n_plane_constraints", "n_plane_merges", "n_plane_dropped")
+SLAM_COUNTERS = ("n_slam", "n_slam_init", "n_slam_update")
 
 
-def _setup(spec: PathSpec, device, dtype):
+def _setup(spec: PathSpec, device, dtype, seed: int = SEED):
     from ov_plane_tpu_torch.models.manager import VioEngine
     from ov_plane_tpu_torch.sim import simulator
     from ov_plane_tpu_torch.utils import config
@@ -353,7 +398,7 @@ def _setup(spec: PathSpec, device, dtype):
     cfg = getattr(config, spec.config)()
     truth = simulator.load_scene(getattr(simulator, spec.scene), dtype=dtype, device=device)
     sim = simulator.apply_noise(truth, simulator.noise_params(cfg), BATCH,
-                                torch.Generator(device=device).manual_seed(SEED))
+                                torch.Generator(device=device).manual_seed(seed))
     return cfg, truth, sim, VioEngine.from_config(cfg, device=device)
 
 
@@ -457,8 +502,10 @@ def drive_path(spec: PathSpec):
         raise RuntimeError(f"stream 0 position RMSE {rmse0:.3f} m is not below 0.5 m")
     info = dict(stream_frames_per_s=BATCH * n_frames / wall, wall_s=wall, n_frames=n_frames,
                 eng=eng, cfg=cfg, sim=sim, snapshot=snapshot)
-    if spec.name == "plane":
+    if eng.use_planes:
         info.update(check_planes(tag, state, outs, truth))
+    if eng.use_slam:
+        check_slam(tag, state, outs)
 
     # Reference on a small input: two of the streams through the port on the
     # CPU in f64 (plain kernel versions), against the card's f32 run.
@@ -469,9 +516,12 @@ def drive_path(spec: PathSpec):
     dq = (outs.q[:2, :n_ref].double().cpu() - ref.q).abs().max().item()
     print(f"{tag} card f32 vs CPU f64 ({time.time() - t:.1f} s on the CPU), 2 streams x {n_ref} frames: "
           f"max|dp|={dp:.3e} m max|dq|={dq:.3e}")
-    compare_counters(tag, outs, ref, n_ref, ("n_msckf_used",) + (PLANE_COUNTERS if spec.name == "plane" else ()))
-    if not (dp < 1e-2 and dq < 1e-3):
-        raise RuntimeError("the card's run disagrees with the CPU f64 reference")
+    agree = compare_counters(tag, outs, ref, n_ref, ("n_msckf_used",) + (PLANE_COUNTERS if eng.use_planes else ())
+                             + (SLAM_COUNTERS if eng.use_slam else ()))
+    if min(agree.values()) < 1.0:
+        raise RuntimeError(f"per-frame counters differ from the CPU f64 run's: share of stream-frames equal {agree}")
+    if not (dp < spec.pose_limits[0] and dq < spec.pose_limits[1]):
+        raise RuntimeError(f"the card's run disagrees with the CPU f64 reference (limits {spec.pose_limits})")
     return n_frames, launches, info
 
 
@@ -499,20 +549,40 @@ def check_planes(tag, state, outs, truth):
     return dict(n_plane_dropped=dropped, n_plane_constraints=n_constraints)
 
 
+def check_slam(tag, state, outs):
+    """The SLAM path's own checks: every stream initialized landmarks and
+    held some in the state at some frame, and landmark updates were applied."""
+    inits = outs.n_slam_init.sum(dim=1)
+    held = outs.n_slam.max(dim=1).values
+    first = (outs.n_slam_init.sum(dim=0) > 0).nonzero()
+    print(f"{tag} SLAM: first init at frame {int(first[0]) + 1 if first.numel() else None}; inits per stream "
+          f"min {inits.min().item()} mean {inits.float().mean().item():.1f}; landmarks held at most "
+          f"{held.max().item()} (min over streams {held.min().item()}); landmark updates "
+          f"{outs.n_slam_update.sum().item()} ({outs.n_slam_update.float().mean().item():.2f} per stream-frame); "
+          f"{state.slam_active.sum().item()} landmarks active at the end")
+    if not (inits.min().item() > 0 and held.min().item() > 0 and outs.n_slam_update.sum().item() > 0):
+        raise RuntimeError("a stream initialized no SLAM landmark, or no landmark update was applied")
+    if not torch.isfinite(state.slam_p[state.slam_active]).all():
+        raise RuntimeError("non-finite SLAM landmark")
+
+
 def compare_counters(tag, outs, ref, n_ref, names):
     """Per-frame counters (features that passed the χ² gate, the plane
     counters) of the card's f32 run against the CPU f64 run; where f32 takes
     a gate that f64 does not (or the reverse), the frame and the counter are
-    printed."""
+    printed. Returns each counter's share of agreeing stream-frames."""
+    agree = {}
     for name in names:
         card = getattr(outs, name)[:2, :n_ref].cpu()
         cpu = getattr(ref, name)
         diff = (card != cpu).nonzero().tolist()
+        agree[name] = 1.0 - len(diff) / card.numel()
         print(f"{tag} {name} per frame: card == CPU f64 on {card.numel() - len(diff)} of {card.numel()} "
               f"stream-frames; totals card {card.sum().item()} CPU {cpu.sum().item()}")
         for b, f in diff[:10]:
             print(f"{tag}   gate flipped: stream {b} frame {f + 1} {name} card {card[b, f].item()} "
                   f"CPU f64 {cpu[b, f].item()}")
+    return agree
 
 
 def _raw_events(prof):
@@ -584,10 +654,15 @@ def report_profile(tag, prof, ranges, first, n, frame_wall_ms, wall_ms):
     print(f"{tag} events read in {time.time() - t:.1f} s")
 
 
-VISION_FRAMES = 80      # the bench's vision frames (bench.py:116)
+VISION_FRAMES = 64      # the first 64 of the bench's 80 vision frames (bench.py:116)
 VISION_WARM = 12        # warm-up frames, the host synchronizations counted from the third
 VISION_REF = 20         # frames of streams 0-1 against the port's CPU run
+ANCHOR_FRAMES = 44      # its frames: the first inits at frame 20 move anchor some 11 frames later
+TABLETOP_LAYERS = dict(texture_cell=0.1, speckle_cells=((0.05, 0.12, 0.30), 0.12))   # tests/test_fused_planes.py
 VISION_PER_FRAME = {"gram_reduce": 1, "kalman_downdate": 12}   # classic 1, plane 1, init 2, merge slots 8
+ANCHOR_PER_FRAME = {"gram_reduce": 1, "kalman_downdate": 10}   # classic 1, SLAM update 1, init candidates 8
+TABLETOP_PER_FRAME = {"gram_reduce": 0, "kalman_downdate": 12}  # the vision path's, the classic update by QR
+TABLETOP_MIN_EQUAL = 44  # of stream 0's 46 frames, plane counters equal to the CPU f64 run's (46 seen)
 VISION_RANGES = ("frontend.preprocess", "frontend.klt", "frontend.ransac", "frontend.fast", "frontend.triangulate",
                  "step.propagate_and_clone", "step.ingest", "step.triage", "step.plane_init", "step.plane_msckf",
                  "step.msckf_update", "step.marginalize", "host.plane_detect", "pull")
@@ -834,6 +909,154 @@ def profile_vision(info: dict, n: int = 5):
     report_profile(tag, prof, VISION_RANGES, VISION_WARM + 1, n, frame_wall_ms, wall_ms)
 
 
+def drive_anchored():
+    """Phase 5b, second part: anchored landmarks (OpenVINS's default SLAM
+    representation) on MS-PT, 4 streams in f32, one ``run_sequence`` frame
+    at a time until some active landmark has moved to a new anchor clone;
+    returns (n_frames, launches, info)."""
+    from ov_plane_tpu_torch.models.manager import VioEngine, run_sequence
+    from ov_plane_tpu_torch.ops import kernels
+    from ov_plane_tpu_torch.sim import simulator
+    from ov_plane_tpu_torch.utils.config import ms_pl_config
+
+    tag = "[anchored]"
+    t = time.time()
+    cfg = ms_pl_config()
+    cfg.state.use_plane_constraint = False
+    cfg.state.use_plane_slam_feats = False
+    cfg.state.feat_rep_slam = "ANCHORED_MSCKF_INVERSE_DEPTH"
+    eng = VioEngine.from_config(cfg, device="cuda")
+    b = ANCHOR_BATCH
+    truth = simulator.load_scene(simulator.PLANE_SCENE_PATH, dtype=torch.float32, device="cuda")
+    sim = simulator.apply_noise(truth, simulator.noise_params(cfg), b, torch.Generator(device="cuda").manual_seed(SEED))
+    state, bank = _fresh(eng, cfg, sim, b, "cuda", torch.float32)
+    prev = None
+    changes = inits = 0
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_run = time.time()
+    for i in range(1, ANCHOR_FRAMES + 1):
+        state, bank, out = run_sequence(eng, state, bank, sim, imu_window=cfg.tpu.max_imu_per_frame, n_frames=1,
+                                        start=i)
+        cur = (state.slam_id.cpu(), state.slam_active.cpu(), state.slam_anchor_slot.cpu())
+        inits += int(out.n_slam_init.sum())
+        if prev is not None:
+            kept = cur[1] & prev[1] & (cur[0] == prev[0])
+            changes += int((kept & (cur[2] != prev[2])).sum())
+        prev = cur
+        if (cur[1] & (cur[2] < 0)).any():
+            raise RuntimeError(f"frame {i}: an active anchored landmark has no anchor clone")
+    wall = time.time() - t_run
+    launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
+    print(f"{tag} launches: {launches}")
+    for k, n in launches.items():
+        if n != ANCHOR_PER_FRAME[k] * ANCHOR_FRAMES:
+            raise RuntimeError(f"{k} launched {n} times over {ANCHOR_FRAMES} frames, "
+                               f"not {ANCHOR_PER_FRAME[k]} per frame")
+    if not (torch.isfinite(state.cov).all() and torch.isfinite(state.imu).all()
+            and torch.isfinite(state.slam_p[state.slam_active]).all()):
+        raise RuntimeError("non-finite state on the anchored run")
+    print(f"{tag} MS-PT, {cfg.state.feat_rep_slam}, D={eng.layout.dim}, {b} streams x {ANCHOR_FRAMES} frames in "
+          f"{time.time() - t:.1f} s: {inits} landmark inits, {changes} anchor changes of active landmarks, "
+          f"{int(prev[1].sum())} landmarks active at the end, stream 0's anchors {prev[2][0].tolist()}")
+    if inits == 0 or changes == 0:
+        raise RuntimeError("no anchored landmark was initialized or moved to a new anchor")
+    return ANCHOR_FRAMES, launches, dict(stream_frames_per_s=b * ANCHOR_FRAMES / wall, anchor_changes=changes)
+
+
+def drive_tabletop():
+    """Phase 6b: the fused path's plane update on the tabletop scene; returns
+    (n_frames, launches, info)."""
+    from ov_plane_tpu_torch.frontend.synthetic import render_frame_textured
+    from ov_plane_tpu_torch.models.manager import VioEngine
+    from ov_plane_tpu_torch.ops import kernels
+    from ov_plane_tpu_torch.ops.quat import quat_2_rot
+    from ov_plane_tpu_torch.sim import simulator
+    from ov_plane_tpu_torch.utils.config import tabletop_config
+
+    tag = "[tabletop]"
+    t = time.time()
+    cfg = tabletop_config()
+    eng = VioEngine.from_config(cfg, device="cuda")
+    truth = simulator.load_scene(simulator.TABLETOP_SCENE_PATH, dtype=torch.float64, device="cuda")
+    sim = simulator.apply_noise(truth, simulator.noise_params(cfg), TABLETOP_BATCH,
+                                torch.Generator(device="cuda").manual_seed(SEED + 3))
+    n_frames = truth.cam_t.shape[0] - 1
+    R_ItoC = quat_2_rot(torch.tensor(cfg.cam_extrinsics[0:4], dtype=torch.float64))
+    p_IinC = torch.tensor(cfg.cam_extrinsics[4:7], dtype=torch.float64)
+    frames = [render_frame_textured(truth.plane_corners, truth.plane_normal, truth.plane_d, quat_2_rot(truth.gt_q[i]),
+                                    truth.gt_p[i], R_ItoC, p_IinC, cfg.cam_intrinsics, tuple(cfg.cam_wh),
+                                    **TABLETOP_LAYERS) for i in range(1, n_frames + 1)]
+    torch.cuda.synchronize()
+    # Float frames off the 8-bit lattice: the f32 wire and the exact sampler,
+    # what the wire guard resolves them to (the frames are staged here).
+    run = VisionRun(cfg, truth, (truth.imu_t.cpu().numpy(), sim.imu_w.cpu().numpy(), sim.imu_a.cpu().numpy(),
+                                 truth.cam_t_imu.cpu().numpy()), sim.gt_bg_cam[:, 0], sim.gt_ba_cam[:, 0], None,
+                    "mm", "f32")
+    print(f"{tag} D={eng.layout.dim}; {n_frames} frames rendered on the card in {time.time() - t:.2f} s; "
+          f"B={TABLETOP_BATCH}, f32")
+
+    def drive(drv, st, bank, fev, b, on_card):
+        rows = []
+        for i in range(1, n_frames + 1):
+            img = frames[i - 1].expand(b, -1, -1).contiguous()
+            st, bank, fev, out = drv.step_batch(st, bank, fev, img if on_card else img.cpu(),
+                                                *_imu_window(run, i, slice(0, b)))
+            rows.append(torch.stack([out.n_plane_init, out.n_plane_constraints, out.n_planes], dim=1).cpu())
+        drv.flush_stream()
+        drv.close()
+        return torch.stack(rows, dim=1), st                       # [b, T, 3]
+
+    drv, st, bank, fev = vision_driver(run, eng, TABLETOP_BATCH, "cuda", torch.float32)
+    kernels.reset_launch_counts()
+    t = time.time()
+    cnt, st = drive(drv, st, bank, fev, TABLETOP_BATCH, True)
+    wall = time.time() - t
+    launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
+    n_init, n_constr, n_planes = int(cnt[..., 0].sum()), int(cnt[..., 1].sum()), int(cnt[..., 2].max())
+    in_state = int((cnt[..., 2].max(dim=1).values > 0).sum())
+    print(f"{tag} {TABLETOP_BATCH}x{n_frames} stream-frames in {wall:.3f} s (wire {drv.vopts.img_wire}, sampler "
+          f"{drv.vopts.klt.sampler}); launches {launches}; plane inits {n_init} (counted before the 2 s delay "
+          f"gate), constraint updates {n_constr}, planes in the state at most {n_planes}, on {in_state} of "
+          f"{TABLETOP_BATCH} streams")
+    for k, n in launches.items():
+        if n != TABLETOP_PER_FRAME[k] * n_frames:
+            raise RuntimeError(f"{k} launched {n} times over {n_frames} frames, "
+                               f"not {TABLETOP_PER_FRAME[k]} per frame")
+    if not (torch.isfinite(st.cov).all() and torch.isfinite(st.imu).all()):
+        raise RuntimeError("non-finite tabletop state")
+    if n_init < 1 or n_planes < 1 or n_constr < 1:
+        raise RuntimeError("the fused path's plane update did not fire on the tabletop scene")
+
+    # Stream 0 and the first other stream with a plane in the state through
+    # the port on the CPU (frontend f32, filter f64), same inputs. Stream 0
+    # must agree (its first plane enters the state at frame 42 on both); on
+    # the other, an f32 gate that f64 does not take is printed.
+    t = time.time()
+    sel = [0] + [int(b) for b in (cnt[:, :, 2].max(dim=1).values > 0).nonzero()[:, 0] if b > 0][:1]
+    imu_t, imu_w, imu_a, cam_t = run.imu
+    sub = run._replace(imu=(imu_t, imu_w[sel], imu_a[sel], cam_t), gt_bg0=run.gt_bg0[sel], gt_ba0=run.gt_ba0[sel])
+    cpu_eng = VioEngine.from_config(cfg, device="cpu")
+    cref, _ = drive(*vision_driver(sub, cpu_eng, len(sel), "cpu", torch.float64), len(sel), False)
+    same = []
+    for j, b in enumerate(sel):
+        card_b, cpu_b = cnt[b], cref[j]
+        first = [int(c[:, 2].nonzero()[0]) + 1 if c[:, 2].any() else None for c in (card_b, cpu_b)]
+        same.append(int((card_b == cpu_b).all(dim=1).sum()))
+        print(f"{tag} stream {b}, card f32 vs CPU f64: first frame with a plane in the state {first[0]} vs "
+              f"{first[1]}; (inits, constraints, planes) equal on {same[-1]} of {n_frames} frames")
+        for f in range(35, n_frames):
+            print(f"{tag}   frame {f + 1}: card {card_b[f].tolist()} CPU {cpu_b[f].tolist()}")
+        if b == 0 and (first[0] is None or first[0] != first[1] or same[-1] < TABLETOP_MIN_EQUAL):
+            raise RuntimeError(f"stream 0's plane counters disagree with the CPU f64 run: first plane at frame "
+                               f"{first[0]} vs {first[1]}, equal on {same[-1]} of {n_frames} frames "
+                               f"(at least {TABLETOP_MIN_EQUAL} needed)")
+    print(f"{tag} CPU reference of streams {sel} in {time.time() - t:.1f} s")
+    info = dict(stream_frames_per_s=TABLETOP_BATCH * n_frames / wall, wall_s=wall, n_frames=n_frames,
+                streams=sel, counters_equal=same)
+    return n_frames, launches, info
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -870,9 +1093,15 @@ def main() -> int:
         results[spec.name] = (n_frames, launches, info)
         print(f"[{spec.name}] phase took {time.time() - t:.1f} s")
     t = time.time()
+    results["anchored"] = drive_anchored()
+    print(f"[anchored] phase took {time.time() - t:.1f} s")
+    t = time.time()
     results["vision"] = drive_vision()
     profile_vision(results["vision"][2])
     print(f"[vision] phase took {time.time() - t:.1f} s")
+    t = time.time()
+    results["tabletop"] = drive_tabletop()
+    print(f"[tabletop] phase took {time.time() - t:.1f} s")
 
     meta = {
         "gram_reduce": ("ov_plane_tpu_torch/csrc/gram_reduce.cu",

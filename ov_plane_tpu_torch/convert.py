@@ -3,14 +3,16 @@
 The JAX package's state, feature bank and simulator data are pytrees of
 arrays. Handed over as mappings of numpy arrays (field name -> array), these
 functions build the port's [B, ...] containers: per-stream mappings are
-stacked along a new leading stream dimension. A state carries its plane
-slots (``plane_cp``, ``plane_cp_fej``, ``plane_id``, ``plane_active``) and
-a bank its features' plane ids; simulator data carries the per-observation
-plane ids (``obs_plane``) and, for a plane scene, the true plane CPs. A
-fused frontend's tracker state (:func:`frontend_from_arrays`) carries its
-prepared pyramid, so both packages can start one step from the same state.
-Fields the port does not hold yet (SLAM anchors, ground-truth injection)
-are ignored. Every function makes its tensors on the card unless the caller
+stacked along a new leading stream dimension. A state carries its SLAM
+landmark slots (``slam_p``, ``slam_p_fej``, ``slam_id``, ``slam_active``,
+``slam_anchor_slot``) and plane slots (``plane_cp``, ``plane_cp_fej``,
+``plane_id``, ``plane_active``), a bank its features' plane ids and SLAM
+marks (``is_slam``, ``slam_slot``); simulator data carries the
+per-observation plane ids (``obs_plane``) and, for a plane scene, the true
+plane CPs. A fused frontend's tracker state (:func:`frontend_from_arrays`)
+carries its prepared pyramid, so both packages can start one step from the
+same state. Fields the port does not hold yet (ground-truth injection) are
+ignored. Every function makes its tensors on the card unless the caller
 asks for the CPU.
 """
 

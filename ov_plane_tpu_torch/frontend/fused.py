@@ -19,7 +19,8 @@ towards the lower index as the JAX package breaks them.
 :class:`FusedVisionDriver` runs the step over a device-resident frame and
 the host Delaunay plane detector (``plane_track_batch``) over each frame's
 pulled tracks; the labels it makes reach the step two frames later
-(pipelined: frame k's pull is read while frame k+1 runs).
+(pipelined: frame k's pull is read while frame k+1 runs);
+:meth:`FusedVisionDriver.step_stream` is its one-stream form.
 """
 
 from __future__ import annotations
@@ -410,7 +411,7 @@ class FusedVisionDriver:
     def __init__(self, cfg, eng: VioEngine, batch: int, klt_fb: bool = False, sampler: str = "auto",
                  img_wire: str = "auto", plane_threads: int = 0):
         if batch < 1:
-            raise ValueError("the driver steps a batch of at least one stream (step_stream is not ported)")
+            raise ValueError("the driver steps a batch of at least one stream")
         cap = cfg.tpu.max_obs_per_frame
         self.vopts = FusedVisionOptions(
             cam_model=cams.RADTAN if cfg.cam_model == "radtan" else cams.EQUI,
@@ -575,9 +576,31 @@ class FusedVisionDriver:
             self._consume(prev)
         return states, banks, fevs, out
 
+    def step_stream(self, state, bank, fev, img, imu_t, imu_w, imu_a, t_new, pipelined: bool = True):
+        """One stream, one step: :meth:`step_batch` at B = 1 with host inputs
+        that have no stream dimension (img [h, w], or [1, h, w] staged by
+        :meth:`stage_image`; imu_t [W], imu_w / imu_a [W, 3], t_new a float).
+        The state, bank and tracker state keep their stream dimension of one.
+
+        ``pipelined`` (the default) reads frame k's pull while frame k+1
+        runs, so plane labels reach the step two frames later; with
+        ``pipelined=False`` the frame's own pull is read (and the detector
+        run) before returning, so labels lag one frame, as the reference's
+        TrackPlane detects on the previous image."""
+        if self.B != 1:
+            raise ValueError(f"step_stream steps one stream; this driver has {self.B} (use step_batch)")
+        imgs = img if img.ndim == 3 else img[None]
+        state, bank, fev, out = self.step_batch(state, bank, fev, imgs, np.asarray(imu_t)[None],
+                                                np.asarray(imu_w)[None], np.asarray(imu_a)[None],
+                                                np.asarray([t_new], np.float64))
+        if not pipelined:
+            self.flush_stream()
+        return state, bank, fev, out
+
     def flush_stream(self):
-        """Read the pull left pending by the last :meth:`step_batch`, so the
-        last frame's counters and plane detection are processed."""
+        """Read the pull left pending by the last :meth:`step_batch` or
+        :meth:`step_stream`, so the last frame's counters and plane
+        detection are processed."""
         if self._pending is not None:
             prev, self._pending = self._pending, None
             self._consume(prev)

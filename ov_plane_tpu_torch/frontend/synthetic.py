@@ -41,6 +41,18 @@ def _hash01(ix: torch.Tensor, iy: torch.Tensor, salt: int) -> torch.Tensor:
     return (n & 0xFFFF).to(torch.float64) / 65535.0
 
 
+def _tiles(x0: torch.Tensor, y0: torch.Tensor):
+    """The distinct lattice tiles among the integral coordinates (x0, y0)
+    [N], as (tx, ty) [U] in their dtype, and each entry's index [N] into
+    them: a hash of a tile is then drawn once per tile and gathered, the
+    same values as drawn per pixel."""
+    ix, iy = x0.to(torch.int64), y0.to(torch.int64)
+    x_min, y_min = ix.min(), iy.min()
+    span = iy.max() - y_min + 1
+    tiles, inv = torch.unique((ix - x_min) * span + (iy - y_min), return_inverse=True)
+    return (tiles // span + x_min).to(x0.dtype), (tiles % span + y_min).to(x0.dtype), inv
+
+
 def _value_noise(s: torch.Tensor, t: torch.Tensor, cell: float, seed: int) -> torch.Tensor:
     """Smooth 2D value noise at world coords (s, t), one octave."""
     x = s / cell
@@ -51,10 +63,11 @@ def _value_noise(s: torch.Tensor, t: torch.Tensor, cell: float, seed: int) -> to
     fy = y - y0
     fx = fx * fx * (3 - 2 * fx)   # smoothstep
     fy = fy * fy * (3 - 2 * fy)
-    v00 = _hash01(x0, y0, seed)
-    v10 = _hash01(x0 + 1, y0, seed)
-    v01 = _hash01(x0, y0 + 1, seed)
-    v11 = _hash01(x0 + 1, y0 + 1, seed)
+    tx, ty, inv = _tiles(x0, y0)
+    v00 = _hash01(tx, ty, seed)[inv]
+    v10 = _hash01(tx + 1, ty, seed)[inv]
+    v01 = _hash01(tx, ty + 1, seed)[inv]
+    v11 = _hash01(tx + 1, ty + 1, seed)[inv]
     return v00 * (1 - fx) * (1 - fy) + v10 * fx * (1 - fy) + v01 * (1 - fx) * fy + v11 * fx * fy
 
 
@@ -69,24 +82,42 @@ def _speckle(s: torch.Tensor, t: torch.Tensor, cell: float, seed: int, px_per_m:
 
     x = s / cell
     y = t / cell
-    out = torch.zeros_like(s)
-    x0f = torch.floor(x)
-    y0f = torch.floor(y)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    tx, ty, inv = _tiles(x0, y0)
     # A dot can spill into neighbour tiles: visit the 3×3 tile neighbourhood.
+    # Its centre lies 0.15-0.85 into its tile and its radius is at most r_hi
+    # cells, so it reaches r_hi − 0.15 cells into a neighbour: a neighbour is
+    # visited at the pixels within that reach only (elsewhere its term is
+    # exactly zero). Each tile's dot is drawn once and gathered to its pixels.
+    reach = r_hi - 0.15 + 1e-6
+    fx, fy = x - x0, y - y0
+    near_x = {-1: fx < reach, 1: fx > 1.0 - reach}
+    near_y = {-1: fy < reach, 1: fy > 1.0 - reach}
+
+    def term(dx, dy, sel):
+        k, xs, ys, ppm = (inv, x, y, px_per_m) if sel is None else (inv[sel], x[sel], y[sel], px_per_m[sel])
+        ix = tx + dx
+        iy = ty + dy
+        present = (hashk(ix, iy, 0) < 0.6)[k]
+        cx = (ix + 0.15 + 0.7 * hashk(ix, iy, 1))[k]
+        cy = (iy + 0.15 + 0.7 * hashk(ix, iy, 2))[k]
+        r = (r_lo + (r_hi - r_lo) * hashk(ix, iy, 3))[k]     # radius in cells
+        amp = torch.where(hashk(ix, iy, 4) < 0.5, -0.35, 0.35)[k]
+        d2 = (xs - cx) ** 2 + (ys - cy) ** 2
+        e = torch.clamp((r - torch.sqrt(d2)) / (0.3 * r + 1e-9), 0.0, 1.0)
+        r_px = r * cell * ppm
+        w_o = torch.clamp((r_px - 1.0) / 1.5, 0.0, 1.0)
+        return torch.where(present, amp * e * e * (3 - 2 * e) * w_o, 0.0)
+
+    out = torch.zeros_like(s)
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
-            ix = x0f + dx
-            iy = y0f + dy
-            present = hashk(ix, iy, 0) < 0.6
-            cx = ix + 0.15 + 0.7 * hashk(ix, iy, 1)
-            cy = iy + 0.15 + 0.7 * hashk(ix, iy, 2)
-            r = r_lo + (r_hi - r_lo) * hashk(ix, iy, 3)     # radius in cells
-            amp = torch.where(hashk(ix, iy, 4) < 0.5, -0.35, 0.35)
-            d2 = (x - cx) ** 2 + (y - cy) ** 2
-            e = torch.clamp((r - torch.sqrt(d2)) / (0.3 * r + 1e-9), 0.0, 1.0)
-            r_px = r * cell * px_per_m
-            w_o = torch.clamp((r_px - 1.0) / 1.5, 0.0, 1.0)
-            out = out + torch.where(present, amp * e * e * (3 - 2 * e) * w_o, 0.0)
+            if dx == 0 and dy == 0:
+                out = out + term(0, 0, None)
+                continue
+            mask = near_x[dx] if dy == 0 else near_y[dy] if dx == 0 else near_x[dx] & near_y[dy]
+            sel = mask.nonzero(as_tuple=True)[0]
+            out[sel] = out[sel] + term(dx, dy, sel)
     return out
 
 
@@ -99,8 +130,9 @@ def render_frame_textured(plane_corners, plane_normal, plane_d, R_GtoI, p_IinG, 
     blob overlay).
 
     plane_corners [P, 4, 3] (tl, tr, bl, br), plane_normal [P, 3], plane_d
-    [P] with n·x = d: tensors on the device to render on. ``speckle_cells``
-    holds the speckle layers' cell sizes."""
+    [P] with n·x = d: tensors on the device to render on. Each entry of
+    ``speckle_cells`` is a speckle layer: a cell size (dot radii 0.05-0.15
+    of the cell) or a tuple (cell, r_lo, r_hi)."""
     f64 = torch.float64
     dev = plane_corners.device
     t64 = lambda a: torch.as_tensor(a, dtype=f64, device=dev)  # noqa: E731
@@ -133,6 +165,13 @@ def render_frame_textured(plane_corners, plane_normal, plane_d, R_GtoI, p_IinG, 
         s_c = rel @ e1u[p]
         t_c = rel @ e2u[p]
         hit = ((t_hit > 0.05) & (s_c >= 0) & (s_c <= l1[p]) & (t_c >= 0) & (t_c <= l2[p]) & (t_hit < best_t))
+        # The texture is computed at the hit pixels only (one read of the
+        # device per plane, outside any filter step); a plane out of view is
+        # skipped, as in the numpy original.
+        sel = hit.nonzero(as_tuple=True)
+        if sel[0].numel() == 0:
+            continue
+        t_hit, s_c, t_c = t_hit[sel], s_c[sel], t_c[sel]
         # Three octaves, each faded out as its on-screen cell nears the pixel pitch.
         cell_px_1 = texture_cell * f_px / torch.clamp(t_hit, min=0.05)
         octs = None
@@ -144,9 +183,9 @@ def render_frame_textured(plane_corners, plane_normal, plane_d, R_GtoI, p_IinG, 
             wsum = wsum + w_o
         val = 0.18 + 0.55 * octs / torch.clamp(wsum, min=1e-6)
         px_per_m = f_px / torch.clamp(t_hit, min=0.05)
-        for si, cell_s in enumerate(speckle_cells):
-            val = val + _speckle(s_c, t_c, cell_s, seed + 29 * p + 5 + 17 * si, px_per_m)
-        val = torch.clamp(val, 0.02, 1.0)
-        best_t = torch.where(hit, t_hit, best_t)
-        tex = torch.where(hit, val.to(torch.float32), tex)
+        for si, sc in enumerate(speckle_cells):
+            cell_s, r_lo, r_hi = sc if isinstance(sc, (tuple, list)) else (sc, 0.05, 0.15)
+            val = val + _speckle(s_c, t_c, cell_s, seed + 29 * p + 5 + 17 * si, px_per_m, r_lo=r_lo, r_hi=r_hi)
+        best_t[sel] = t_hit
+        tex[sel] = torch.clamp(val, 0.02, 1.0).to(torch.float32)
     return torch.clamp(tex, 0.0, 1.0)

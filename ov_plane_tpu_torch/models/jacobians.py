@@ -1,8 +1,7 @@
-"""Per-feature stacked measurement Jacobians (full-width, GLOBAL_3D).
+"""Per-feature stacked measurement Jacobians (full-width).
 
-Counterpart of ``ov_plane_tpu/models/jacobians.py`` for GLOBAL_3D features
-without calibration columns. One feature gives a fixed-shape system over the
-K clone slots:
+Counterpart of ``ov_plane_tpu/models/jacobians.py`` without calibration
+columns. One feature gives a fixed-shape system over the K clone slots:
 
     rows [0 : 2K)    whitened reprojection residuals (2 per clone slot)
     rows [2K : 3K)   whitened point-on-plane residuals (1 per observation,
@@ -13,7 +12,10 @@ d/d p_FinG in columns 0:3 and d/d cp in columns 3:6 for a plane that is not
 in the state (a plane in the state takes its three state columns in H_x).
 FEJ points follow the reference: clone FEJ poses and the feature / plane FEJ
 values in the Jacobians, current estimates in the residuals and in the
-distortion Jacobian.
+distortion Jacobian. With a landmark representation other than GLOBAL_3D
+(``JacobianOptions.rep``) the feature columns are that representation's
+error state, and anchored representations add the coupling to their anchor
+clone's columns (UpdaterHelper.cpp:195-444).
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from typing import NamedTuple
 
 import torch
 
+from ov_plane_tpu_torch.models.feature_bank import _take
 from ov_plane_tpu_torch.ops import cams
+from ov_plane_tpu_torch.ops import representations as reps
 from ov_plane_tpu_torch.ops.quat import quat_2_rot, skew
 from ov_plane_tpu_torch.state.layout import StateLayout
 
@@ -30,6 +34,9 @@ from ov_plane_tpu_torch.state.layout import StateLayout
 class JacobianOptions(NamedTuple):
     cam_model: int = cams.RADTAN
     do_fej: bool = True
+    # Landmark representation of the feature error state (ops/representations;
+    # the 1-dof ANCHORED_INVERSE_DEPTH_SINGLE does not fit the 3-column H_f).
+    rep: int = reps.GLOBAL_3D
 
 
 class CloneSet(NamedTuple):
@@ -63,23 +70,57 @@ def clone_set_from_state(state) -> CloneSet:
     )
 
 
+def anchor_frames(clones: CloneSet, slot: torch.Tensor):
+    """(current, FEJ) anchor camera frames of clone slots [B, M] (in range)."""
+    B, M = slot.shape
+    R_ItoC = clones.R_ItoC[:, None].expand(B, M, 3, 3)
+    p_IinC = clones.p_IinC[:, None].expand(B, M, 3)
+    return (reps.AnchorFrame(_take(clones.R_GtoI, slot), _take(clones.p_IinG, slot), R_ItoC, p_IinC),
+            reps.AnchorFrame(_take(clones.R_GtoI_fej, slot), _take(clones.p_IinG_fej, slot), R_ItoC, p_IinC))
+
+
+def safe_anchor_point(p_A: torch.Tensor):
+    """A degenerate anchor-frame point (not finite, behind the camera or at its
+    centre) replaced by the unit forward point, so inverse-depth parameters
+    stay finite; such features are gated out downstream. Returns (p_A, ok)."""
+    ok = torch.isfinite(p_A).all(dim=-1) & (p_A[..., 2] > 1e-3) & (torch.linalg.vector_norm(p_A, dim=-1) > 1e-3)
+    fwd = torch.tensor([0.0, 0.0, 1.0], dtype=p_A.dtype, device=p_A.device)
+    return torch.where(ok[..., None], p_A, fwd), ok
+
+
 def feature_jacobian_full(lay: StateLayout, opts: JacobianOptions, clones: CloneSet,
                           uv, obs_mask, p_FinG, p_FinG_fej, sigma_px,
                           cp=None, cp_fej=None, has_plane=None, plane_in_state=None, plane_slot=None,
-                          sigma_c=0.05):
+                          sigma_c=0.05, anchor_slot=None):
     """Stacked whitened systems of [B, M] features.
 
     uv [B, M, K, 2] measured pixels, obs_mask [B, M, K], p_FinG / p_FinG_fej
     [B, M, 3]. With ``has_plane`` [B, M] given, the point-on-plane rows are
     filled for the features on a plane: cp / cp_fej [B, M, 3] the plane's CP,
     plane_in_state [B, M] and plane_slot [B, M] int its state slot, sigma_c a
-    float or [B, M]. Returns (H_x [B, M, 3K, D], H_f [B, M, 3K, 6],
-    res [B, M, 3K], row_mask [B, M, 3K]).
+    float or [B, M]. With ``opts.rep`` other than GLOBAL_3D, ``anchor_slot``
+    [B, M] (clone slots in range) anchors each feature's representation.
+    Returns (H_x [B, M, 3K, D], H_f [B, M, 3K, 6], res [B, M, 3K],
+    row_mask [B, M, 3K]).
     """
     B, M, K = obs_mask.shape
     D = lay.dim
     dtype, dev = uv.dtype, uv.device
     white_px = 1.0 / sigma_px
+    rj = None
+    if opts.rep != reps.GLOBAL_3D:
+        anchor_slot = anchor_slot.to(torch.int64)
+        anc, anc_fej = anchor_frames(clones, anchor_slot)
+        # A failed triangulation can put the point at the anchor camera's
+        # centre or behind it, where inverse-depth parameters are not finite
+        # (and 0·NaN survives the masks): linearize at the unit forward point.
+        p_FinG = anc.point_to_global(safe_anchor_point(anc.point_to_anchor(p_FinG))[0])
+        fej_frame = anc_fej if opts.do_fej else anc
+        p_FinG_fej = fej_frame.point_to_global(safe_anchor_point(fej_frame.point_to_anchor(p_FinG_fej))[0])
+        rj = reps.rep_jacobians(opts.rep, p_FinG, p_FinG_fej, anc, anc_fej, fej=opts.do_fej)
+        # FEJ overwrite (UpdaterHelper.cpp:376-385): the projection is
+        # linearized at the representation's re-anchored FEJ point.
+        p_FinG_fej = rj.p_FinG
     R_ItoC = clones.R_ItoC[:, None, None]                       # [B, 1, 1, 3, 3]
     p_IinC = clones.p_IinC[:, None, None]                       # [B, 1, 1, 3]
     zeta = clones.zeta[:, None, None]
@@ -121,6 +162,18 @@ def feature_jacobian_full(lay: StateLayout, opts: JacobianOptions, clones: Clone
     Hc_bd = torch.einsum("bmkac,kl->bmkalc", H_clone, eyeK).reshape(B, M, 2 * K, 6 * K)
     H_x = torch.zeros(B, M, 3 * K, D, dtype=dtype, device=dev)
     H_x[:, :, :2 * K, lay.clone_base:lay.clone_base + 6 * K] = Hc_bd
+    if rj is not None:
+        # Chain rule into the representation's error state; anchored reps
+        # add d z / d(anchor pose) at the anchor clone's six columns.
+        if reps.is_anchored(opts.rep):
+            Ha_rows = (H_feat @ rj.H_anchor[:, :, None]).reshape(B, M, 2 * K, 6)
+            col0 = lay.clone_base + 6 * anchor_slot                          # [B, M]
+            j = torch.arange(D, device=dev)
+            k_of = (j - col0[..., None]).clamp(0, 5)                         # [B, M, D]
+            in_cols = (j >= col0[..., None]) & (j < col0[..., None] + 6)
+            spread = Ha_rows.gather(-1, k_of[:, :, None, :].expand(B, M, 2 * K, D))
+            H_x[:, :, :2 * K] = H_x[:, :, :2 * K] + torch.where(in_cols[:, :, None, :], spread, 0.0)
+        H_feat = H_feat @ rj.H_f[:, :, None]
     H_f = torch.zeros(B, M, 3 * K, 6, dtype=dtype, device=dev)
     H_f[:, :, :2 * K, 0:3] = H_feat.reshape(B, M, 2 * K, 3)
     res = torch.zeros(B, M, 3 * K, dtype=dtype, device=dev)

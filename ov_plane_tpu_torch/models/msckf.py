@@ -20,6 +20,7 @@ import torch
 
 from ov_plane_tpu_torch.models.jacobians import JacobianOptions, clone_set_from_state, feature_jacobian_full
 from ov_plane_tpu_torch.ops import ekf, kernels
+from ov_plane_tpu_torch.ops import representations as reps
 from ov_plane_tpu_torch.ops.triangulation import TriangulationOptions, triangulate
 from ov_plane_tpu_torch.parallel.schur import information_to_compressed
 from ov_plane_tpu_torch.state.vio_state import VioState, tree_where
@@ -61,13 +62,18 @@ def msckf_update(state: VioState, opts: MsckfOptions, sel_uv, sel_uvn, sel_mask,
 
     # FEJ feature value = the fresh triangulation (UpdaterMSCKF).
     use_plane = None
-    plane = {}
+    kw = {}
     if sel_has_plane is not None:
         use_plane = sel_has_plane & opts.use_plane_constraint
-        plane = dict(cp=sel_plane_cp, cp_fej=sel_plane_cp_fej, has_plane=use_plane,
-                     plane_in_state=sel_plane_in_state, plane_slot=sel_plane_slot, sigma_c=opts.sigma_c)
+        kw = dict(cp=sel_plane_cp, cp_fej=sel_plane_cp_fej, has_plane=use_plane,
+                  plane_in_state=sel_plane_in_state, plane_slot=sel_plane_slot, sigma_c=opts.sigma_c)
+    if opts.jac.rep != reps.GLOBAL_3D:
+        # Anchored representations anchor at the newest observing clone (ov_core
+        # sets anchor_clone_timestamp to the feature's last observation).
+        slot_t = torch.where(sel_mask, state.clones_t[:, None, :], -torch.inf)
+        kw["anchor_slot"] = torch.argmax(slot_t, dim=-1)
     H_x, H_f, res, _ = feature_jacobian_full(lay, opts.jac, clones, sel_uv, sel_mask, p_f, p_f, opts.sigma_px,
-                                             **plane)
+                                             **kw)
     okf = tri_ok.to(dtype)
     H_x = H_x * okf[..., None, None]
     H_f = H_f * okf[..., None, None]

@@ -138,8 +138,9 @@ def ekf_update(state, H: torch.Tensor, res: torch.Tensor, r_diag: torch.Tensor):
     return apply_dx(state.replace(cov=new_cov), dx), chi2
 
 
-def inv3(A: torch.Tensor) -> torch.Tensor:
-    """Closed-form 3×3 inverse (adjugate / guarded determinant), [..., 3, 3]."""
+def inv3(A: torch.Tensor, eps: float = 1e-300) -> torch.Tensor:
+    """Closed-form 3×3 inverse (adjugate / determinant), [..., 3, 3]; a
+    determinant below ``eps`` in magnitude is replaced by ``eps``."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -147,7 +148,7 @@ def inv3(A: torch.Tensor) -> torch.Tensor:
     A01 = -(d * i - f * g)
     A02 = d * h - e * g
     det = a * A00 + b * A01 + c * A02
-    det = torch.where(torch.abs(det) < 1e-300, torch.full_like(det, 1e-300), det)
+    det = torch.where(torch.abs(det) < eps, torch.full_like(det, eps), det)
     adj = torch.stack([
         torch.stack([A00, -(b * i - c * h), (b * f - c * e)], dim=-1),
         torch.stack([A01, (a * i - c * g), -(a * f - c * d)], dim=-1),

@@ -1,16 +1,17 @@
 """Plane estimation from sparse points: closed-form fit + joint refinement.
 
-Counterpart of ``ov_plane_tpu/ops/planefit.py`` (``fit_plane_lsq`` and
-``refine_plane_joint``) over leading batch dimensions: one plane per stream
-for the delayed init ([B]), one per stream and group for the grouped MSCKF
-update ([B, G]).
+Counterpart of ``ov_plane_tpu/ops/planefit.py`` (all of it but
+``plane_ransac``, which comes with ``use_plane_ransac``) over leading batch
+dimensions: one plane per stream for the delayed init ([B]), one per stream
+and group for the grouped MSCKF update ([B, G]).
 
 * :func:`fit_plane_lsq` — the linear A·x = −1 fit with its condition number
   (PlaneFitting::fit_plane);
 * :func:`refine_plane_joint` — the Ceres ``optimize_plane`` as fixed-count
   Levenberg-Marquardt over (features, CP) with Cauchy IRLS weights, the
   features eliminated per iteration by a 3×3 Schur complement, then the
-  post-fit inlier re-acceptance.
+  post-fit inlier re-acceptance;
+* :func:`refine_point_on_plane` — features refined against a fixed plane.
 
 CP convention: normal n = cp/‖cp‖, offset d = ‖cp‖, point-on-plane residual
 (n·p − d)/σc.
@@ -200,3 +201,39 @@ def refine_plane_joint(cp0, feats0, uvn, mask, feat_valid, is_fixed, R_GtoC, p_C
     need = torch.clamp(torch.ceil(opts.min_inlier_ratio * n_valid.to(torch.float64)).to(torch.int64), min=4)
     ok = ok & (inl.sum(dim=-1) >= need)
     return cp, feats, ok, inl
+
+
+def refine_point_on_plane(p0, cp, uvn, mask, R_GtoC, p_CinG, opts: PlaneRefineOptions):
+    """Levenberg-Marquardt refine of features against a FIXED plane (the
+    reference's plane-refined SLAM triangulation): reprojection rows plus one
+    point-on-plane row each, ``opts.iters`` damped steps. p0 / cp [..., 3],
+    uvn [..., K, 2], mask [..., K], R_GtoC [..., K, 3, 3], p_CinG [..., K, 3].
+    Returns the refined points [..., 3]."""
+    dtype = p0.dtype
+    white_px = opts.focal / opts.sigma_px
+    white_c = torch.full(p0.shape[:-1], 1.0 / opts.sigma_c, dtype=dtype, device=p0.device)
+    eye = torch.eye(3, dtype=dtype, device=p0.device)
+    uvn, mask, R_GtoC, p_CinG = uvn[..., None, :, :], mask[..., None, :], R_GtoC[..., None, :, :, :], p_CinG[..., None, :, :]
+
+    def system(p):
+        e_re, A = _reproj_system(p[..., None, :], uvn, mask, R_GtoC, p_CinG, white_px)   # [..., 1, K, 2(, 3)]
+        e_pl, b, _ = _plane_residual(p[..., None, :], cp, white_c)                       # [..., 1], [..., 1, 3]
+        return e_re[..., 0, :, :], A[..., 0, :, :, :], e_pl[..., 0], b[..., 0, :]
+
+    def cost(p):
+        e_re, _, e_pl, _ = system(p)
+        return torch.sum(e_re**2, dim=(-1, -2)) + e_pl**2
+
+    p = p0
+    lam = torch.full(p0.shape[:-1], opts.lam_init, dtype=dtype, device=p0.device)
+    for _ in range(opts.iters):
+        e_re, A, e_pl, b = system(p)
+        H = torch.einsum("...kai,...kaj->...ij", A, A) + b[..., :, None] * b[..., None, :]
+        g = -(torch.einsum("...kai,...ka->...i", A, e_re) + b * e_pl[..., None])
+        tr = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1).sum(-1), min=1e-9)
+        H = H + (lam * tr / 3.0)[..., None, None] * eye
+        dp = (inv3(H) @ g[..., None])[..., 0]
+        better = cost(p + dp) < cost(p)
+        p = torch.where(better[..., None], p + dp, p)
+        lam = torch.where(better, torch.clamp(lam / 10.0, min=1e-10), torch.clamp(lam * 10.0, max=1e6))
+    return p

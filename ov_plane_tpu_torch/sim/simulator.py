@@ -2,7 +2,7 @@
 
 The JAX package builds the scene (trajectory spline, feature map, visibility,
 IMU truth) in ``ov_plane_tpu/sim/simulator.build_sim``. Its port is a later
-slice; until then the noiseless truth of two scenes is committed (generated
+slice; until then the noiseless truth of these scenes is committed (generated
 once from ``build_sim``; the generator lives in ``tests/test_torch_scene.py``):
 
 * ``data/sim_config1_truth.npz`` (:data:`SCENE_PATH`): the bench scene, 30 s,
@@ -11,7 +11,10 @@ once from ``build_sim``; the generator lives in ``tests/test_torch_scene.py``):
   30 s, 40 free points + 40 on planes, with the true plane CPs;
 * ``data/sim_vision_truth.npz`` (:data:`VISION_SCENE_PATH`): the vision
   bench's scene, 6 s at 20 Hz, with the room's planes (corners, normals,
-  offsets) that ``frontend.synthetic.render_frame_textured`` draws.
+  offsets) that ``frontend.synthetic.render_frame_textured`` draws;
+* ``data/sim_tabletop_truth.npz`` (:data:`TABLETOP_SCENE_PATH`): the JAX
+  package's plane-firing scene (``tests/test_fused_planes.py``), a 6 s
+  tabletop trajectory at 20 Hz, with its planes for the renderer.
 
 :func:`apply_noise` draws B independent noise instances on top of a scene
 with a ``torch.Generator`` (Simulator.cpp:355-382 bias walks + white IMU
@@ -34,6 +37,7 @@ from ov_plane_tpu_torch.utils.torchenv import resolve_device
 SCENE_PATH = Path(__file__).resolve().parents[1] / "data" / "sim_config1_truth.npz"
 PLANE_SCENE_PATH = Path(__file__).resolve().parents[1] / "data" / "sim_planes_truth.npz"
 VISION_SCENE_PATH = Path(__file__).resolve().parents[1] / "data" / "sim_vision_truth.npz"
+TABLETOP_SCENE_PATH = Path(__file__).resolve().parents[1] / "data" / "sim_tabletop_truth.npz"
 
 
 class SimTruth(NamedTuple):

@@ -58,10 +58,14 @@ class VioState(TensorTree):
     clones_q_fej: torch.Tensor
     clones_p_fej: torch.Tensor
     clones_t: torch.Tensor   # [B, K], -inf marks a free slot
+    # SLAM landmarks: slam_p holds each landmark's representation
+    # parameters (the global point for GLOBAL_3D; anchored reps hold
+    # anchor-frame parameters and their anchor clone slot).
     slam_p: torch.Tensor     # [B, L, 3]
     slam_p_fej: torch.Tensor
-    slam_id: torch.Tensor    # [B, L] int32
+    slam_id: torch.Tensor    # [B, L] int32 feature id, -1 = free
     slam_active: torch.Tensor  # [B, L] bool
+    slam_anchor_slot: torch.Tensor  # [B, L] int32 anchor clone slot, -1 = global rep or free
     plane_cp: torch.Tensor   # [B, P, 3]
     plane_cp_fej: torch.Tensor
     plane_id: torch.Tensor   # [B, P] int32
@@ -91,6 +95,7 @@ class VioState(TensorTree):
             slam_p=zeros(L, 3), slam_p_fej=zeros(L, 3),
             slam_id=torch.full((B, L), -1, dtype=torch.int32, device=device),
             slam_active=torch.zeros(B, L, dtype=torch.bool, device=device),
+            slam_anchor_slot=torch.full((B, L), -1, dtype=torch.int32, device=device),
             plane_cp=zeros(P, 3), plane_cp_fej=zeros(P, 3),
             plane_id=torch.full((B, P), -1, dtype=torch.int32, device=device),
             plane_active=torch.zeros(B, P, dtype=torch.bool, device=device),
@@ -106,3 +111,8 @@ class VioState(TensorTree):
         """[B] slot of the oldest finite timestamp (first index on ties)."""
         inf = torch.full_like(self.clones_t, float("inf"))
         return torch.argmin(torch.where(torch.isfinite(self.clones_t), self.clones_t, inf), dim=1)
+
+    @property
+    def newest_clone_slot(self) -> torch.Tensor:
+        """[B] slot of the newest finite timestamp (first index on ties, 0 with no clone)."""
+        return torch.argmax(torch.where(torch.isfinite(self.clones_t), self.clones_t, -torch.inf), dim=1)

@@ -1,10 +1,10 @@
 """Configuration tree of the PyTorch port.
 
 An own copy of the part of ``ov_plane_tpu/utils/config.py`` that the port
-reads (the point-MSCKF path, the plane filter stages and the fused vision
-frontend): the same dataclass names, field names and defaults, so one set of
-overrides configures both packages. Options of the later slices (SLAM
-updaters, ZUPT, ArUco, YAML loading) are not carried yet.
+reads (the point-MSCKF path, SLAM landmarks, the plane filter stages and the
+fused vision frontend): the same dataclass names, field names and defaults,
+so one set of overrides configures both packages. Options of the later
+slices (ZUPT, ArUco, YAML loading) are not carried yet.
 """
 
 from __future__ import annotations
@@ -168,6 +168,7 @@ class VioConfig:
     state: StateOptions = field(default_factory=StateOptions)
     imu_noises: NoiseManager = field(default_factory=NoiseManager)
     msckf_options: UpdaterOptions = field(default_factory=lambda: UpdaterOptions(chi2_multipler=5.0, sigma_pix=1.0))
+    slam_options: UpdaterOptions = field(default_factory=lambda: UpdaterOptions(chi2_multipler=5.0, sigma_pix=1.0))
     featinit: FeatureInitializerOptions = field(default_factory=FeatureInitializerOptions)
     trackplane: TrackPlaneOptions = field(default_factory=TrackPlaneOptions)
     sim: SimOptions = field(default_factory=SimOptions)
@@ -204,6 +205,7 @@ def sim_config(**overrides) -> VioConfig:
     cfg = VioConfig()
     cfg.state.max_slam_features = 50
     cfg.msckf_options.chi2_multipler = 99999
+    cfg.slam_options.chi2_multipler = 99999
     cfg.cam_model = "radtan"
     cfg.cam_wh = [752, 480]
     cfg.cam_intrinsics = [458.654, 457.296, 367.215, 248.375, -0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]
@@ -270,8 +272,7 @@ def vision_config() -> VioConfig:
     landmarks, calibration off, information-form compression, bank 128, 64
     feature slots per frame, 24 features per update, FAST top-up to 55
     features. K = 12 clone slots and 8 plane slots give D = 114. The same
-    values as the bench sets them (the bench's ``slam_options.sigma_pix``
-    has no field here: SLAM is off). Its scene is the committed one
+    values as the bench sets them. Its scene is the committed one
     (``sim.simulator.VISION_SCENE_PATH``: a 6 s room scan, camera at 20 Hz),
     generated with the bench's simulator settings by
     ``tests/test_torch_scene.py``."""
@@ -299,4 +300,49 @@ def vision_config() -> VioConfig:
     cfg.state.plane_init_max_cond = 150.0
     cfg.state.plane_msckf_max_cond = 150.0
     cfg.msckf_options.sigma_pix = 2.0
+    cfg.slam_options.sigma_pix = 2.0
+    return cfg
+
+
+def ms_pl_config() -> VioConfig:
+    """MS-PL: the top arm of the repo's algorithm ladder (``scripts/run_sweep.py``
+    ``VARIANTS["MS-PL"] = (12, True)``): :func:`plane_config` with 12 SLAM
+    landmark slots, GLOBAL_3D landmarks (planes on), delayed SLAM init of up
+    to 8 promoted tracks per frame, point-on-plane rows in the SLAM update
+    and init. K = 12 clone slots, 12 landmark slots and 8 plane slots give
+    D = 15 + 72 + 36 + 24 = 147. It runs on the committed M-PL scene
+    (``sim.simulator.PLANE_SCENE_PATH``), whose generation does not read the
+    landmark count."""
+    cfg = plane_config()
+    cfg.state.max_slam_features = 12
+    return cfg
+
+
+def tabletop_config() -> VioConfig:
+    """The fused vision path on the JAX package's plane-firing scene
+    (``tests/test_fused_planes.py``): a 6 s tabletop trajectory with the
+    camera at 20 Hz, 50 points, the reference's stock plane gates, 640×480
+    radtan camera, no SLAM landmarks, calibration off, bank 128, 64 feature
+    slots per frame, 24 features per update, pixel sigma 2.0 (the renderer's
+    KLT noise). K = 12 clone slots and 8 plane slots give D = 114. Its scene
+    is the committed one (``sim.simulator.TABLETOP_SCENE_PATH``), generated
+    with those simulator settings (``min_feature_gen_distance`` 1.0) by
+    ``tests/test_torch_scene.py``."""
+    cfg = sim_config()
+    cfg.state.max_slam_features = 0
+    cfg.state.use_plane_constraint = True
+    cfg.state.use_plane_slam_feats = True
+    cfg.state.do_calib_camera_pose = False
+    cfg.state.do_calib_camera_intrinsics = False
+    cfg.state.do_calib_camera_timeoffset = False
+    cfg.num_pts = 50
+    cfg.num_pts_plane = 0
+    cfg.cam_wh = [640, 480]
+    cfg.cam_intrinsics = [300.0, 300.0, 320.0, 240.0, 0.0, 0.0, 0.0, 0.0]
+    cfg.histogram_method = "NONE"
+    cfg.tpu.max_features = 128
+    cfg.tpu.max_obs_per_frame = 64
+    cfg.tpu.max_msckf_update = 24
+    cfg.msckf_options.sigma_pix = 2.0
+    cfg.slam_options.sigma_pix = 2.0
     return cfg

@@ -20,13 +20,17 @@ import torch
 
 from ov_plane_tpu_torch.ops import kernels
 
-SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 114, 195, 300)
-SWEEP_M = (0, 1, 3, 93, 94, 114, 115, 300, 792, 1320, 4096)
+SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 114, 147, 195, 300)
+SWEEP_M = (0, 1, 3, 33, 93, 94, 114, 115, 147, 148, 300, 792, 1320, 4096)
 SWEEP_B = (1, 5, 64)
 SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in enumerate(SWEEP_M)]
 # The filters' own shapes first: the point path's (D = 93), the plane path's
-# (D = 114) and the vision path's merge downdates (M = 3).
-SWEEP = [(64, 1320, 93), (64, 93, 93), (64, 1320, 114), (64, 114, 114), (64, 115, 114), (64, 3, 114)] + SWEEP
+# (D = 114), the vision path's merge downdates (M = 3), the MS-PL path's
+# (D = 147: the SLAM update, the plane updates, the SLAM init's 33 rows), the
+# anchored MS-PT run's at 4 streams and the tabletop run's at 16.
+SWEEP = [(64, 1320, 93), (64, 93, 93), (64, 1320, 114), (64, 114, 114), (64, 115, 114), (64, 3, 114),
+         (64, 1320, 147), (64, 147, 147), (64, 148, 147), (64, 33, 147),
+         (4, 1320, 147), (4, 147, 147), (4, 33, 147), (16, 114, 114), (16, 115, 114), (16, 3, 114)] + SWEEP
 
 
 def _inputs(B, M, D, dtype, g, offset):

@@ -37,10 +37,10 @@ def scene():
         return {k: z[k] for k in z.files}
 
 
-def _render_jax(scene, i, wh, zeta):
+def _render_jax(scene, i, wh, zeta, **kw):
     R = np.asarray(j_quat_2_rot(jnp.asarray(scene["gt_q"][i])))
     return j_render(scene["plane_corners"], scene["plane_normal"], scene["plane_d"], None, R, scene["gt_p"][i],
-                    np.eye(3), np.zeros(3), np.asarray(zeta, np.float64), wh, blobs=False)
+                    np.eye(3), np.zeros(3), np.asarray(zeta, np.float64), wh, blobs=False, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -56,13 +56,17 @@ def frames(scene):
     return np.stack(out)
 
 
-def test_render_frame_textured_matches_jax(scene):
+@pytest.mark.parametrize("layers", [{}, dict(texture_cell=0.1, speckle_cells=((0.05, 0.12, 0.30), 0.12))],
+                         ids=["default", "tuple_layers"])
+def test_render_frame_textured_matches_jax(scene, layers):
+    """The default layers, and the tabletop scene's: a (cell, r_lo, r_hi)
+    layer beside a scalar one."""
     zeta = [75.0, 75.0, 80.0, 60.0, 0.0, 0.0, 0.0, 0.0]
     for i in (1, 45):
-        ref = _render_jax(scene, i, (160, 120), zeta)
+        ref = _render_jax(scene, i, (160, 120), zeta, **layers)
         R = j_quat_2_rot(jnp.asarray(scene["gt_q"][i]))
         got = t_render(torch.as_tensor(scene["plane_corners"]), scene["plane_normal"], scene["plane_d"],
-                       np.asarray(R), scene["gt_p"][i], np.eye(3), np.zeros(3), zeta, (160, 120))
+                       np.asarray(R), scene["gt_p"][i], np.eye(3), np.zeros(3), zeta, (160, 120), **layers)
         assert got.dtype == torch.float32 and got.shape == (120, 160)
         d = np.abs(got.numpy().astype(np.float64) - ref)
         print(f"frame {i}: max|d| {d.max():.3e}, {(d > 0).sum()} of {d.size} pixels differ")

@@ -77,10 +77,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
-    for key, value in (("state.max_slam_features", 25), ("try_zupt", True), ("use_aruco", True),
+    for key, value in (("try_zupt", True), ("use_aruco", True),
                        ("state.use_groundtruths", True), ("tpu.shard_axis", "seq"),
-                       ("state.feat_rep_msckf", "ANCHORED_MSCKF_INVERSE_DEPTH"),
-                       ("state.do_calib_camera_pose", True)):
+                       ("state.do_calib_camera_pose", True), ("state.do_calib_camera_intrinsics", True),
+                       ("state.do_calib_camera_timeoffset", True)):
         cfg = slice_config()
         obj, *path = key.split(".")
         target = cfg if not path else getattr(cfg, obj)
@@ -91,6 +91,40 @@ def test_later_slices_raise_not_implemented():
     cfg.state.use_plane_ransac = True
     with pytest.raises(NotImplementedError, match="plane RANSAC"):
         VioEngine.from_config(cfg, device="cpu")
+
+
+def test_ms_pl_engine_has_slam_landmarks():
+    from ov_plane_tpu_torch.utils.config import ms_pl_config
+
+    eng = VioEngine.from_config(ms_pl_config(), device="cpu")
+    lay = eng.layout
+    assert (lay.max_clones, lay.max_slam, lay.max_planes) == (12, 12, 8)
+    assert lay.dim == 15 + 72 + 36 + 24 == 147
+    assert eng.use_slam and eng.max_slam == 12 and eng.slam_opts.max_init_per_frame == 8
+    assert eng.slam_opts.use_plane_constraint_slamu and eng.slam_opts.use_plane_constraint_slamd
+    # SLAM off keeps one (unused) landmark slot, as the JAX layout does.
+    assert VioEngine.from_config(plane_config(), device="cpu").layout.max_slam == 1
+
+
+@pytest.mark.parametrize("rep", ["GLOBAL_3D", "GLOBAL_FULL_INVERSE_DEPTH", "ANCHORED_3D", "ANCHORED_FULL_INVERSE_DEPTH",
+                                 "ANCHORED_MSCKF_INVERSE_DEPTH", "ANCHORED_INVERSE_DEPTH_SINGLE"])
+def test_landmark_representations_with_planes_off(rep):
+    """Every 3-dof representation runs for MSCKF features and SLAM landmarks;
+    the 1-dof ANCHORED_INVERSE_DEPTH_SINGLE does not fit the 3-column layout
+    and raises, as in the JAX package (manager.py:161-172)."""
+    from ov_plane_tpu_torch.ops import representations as reps
+
+    for key in ("feat_rep_msckf", "feat_rep_slam"):
+        cfg = slice_config()
+        cfg.state.max_slam_features = 6
+        setattr(cfg.state, key, rep)
+        if rep == "ANCHORED_INVERSE_DEPTH_SINGLE":
+            with pytest.raises(NotImplementedError, match="1-dof"):
+                VioEngine.from_config(cfg, device="cpu")
+            continue
+        eng = VioEngine.from_config(cfg, device="cpu")
+        opts = eng.msckf_opts if key == "feat_rep_msckf" else eng.slam_opts
+        assert opts.jac.rep == reps.from_name(rep) and eng.layout.max_slam == 6
 
 
 def test_planes_need_global_3d_features():

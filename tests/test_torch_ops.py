@@ -444,7 +444,8 @@ def test_triage_breaks_ties_towards_the_lower_row(seed):
     eng = manager.VioEngine.from_config(cfg, device="cpu")
     j_sel, j_valid, _, _ = j_manager.triage(j_eng, st, jb, cur, True)
     bank = convert.bank_from_arrays(convert.stack_streams([_bank_arrays(jb)]), device="cpu")
-    sel, valid = manager.triage(eng, port_state([st], eng.layout), bank, torch.tensor([cur]))
+    sel, valid, _, _ = manager.triage(eng, port_state([st], eng.layout), bank, torch.tensor([cur]),
+                                      torch.tensor([True]))
     n_cand = int(np.sum(np.asarray(jb.fid >= 0) & (np.asarray(jb.mask).sum(1) >= 2)
                         & ~np.asarray(jb.mask)[:, cur]))
     assert n_cand > eng.max_msckf_in_update  # the cut is reached ...

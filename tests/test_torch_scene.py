@@ -6,8 +6,10 @@ observation slots); ``sim_planes_truth.npz`` that of the M-PL scene
 (``scripts/run_sweep.py`` ``VARIANTS["M-PL"]``: 30 s, 40 free points + 40
 points on planes), with the true plane CPs; ``sim_vision_truth.npz`` that of
 the vision bench (``bench.py`` vision mode: 6 s at 20 Hz, 64 observation
-slots), with the room's planes that the frame renderer draws. This file is
-also their generator:
+slots), with the room's planes that the frame renderer draws;
+``sim_tabletop_truth.npz`` that of the JAX package's plane-firing scene
+(``tests/test_fused_planes.py``: 6 s tabletop trajectory at 20 Hz, 50
+points), with its planes. This file is also their generator:
 
     env JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_scene.py
 """
@@ -23,7 +25,7 @@ from ov_plane_tpu.sim.simulator import build_sim, generate_planes
 from ov_plane_tpu.sim.trajectory import get_trajectory
 from ov_plane_tpu.utils.config import sim_config as j_sim_config
 from ov_plane_tpu_torch.sim import simulator as tsim
-from ov_plane_tpu_torch.utils.config import plane_config, slice_config, vision_config
+from ov_plane_tpu_torch.utils.config import plane_config, slice_config, tabletop_config, vision_config
 
 FIELDS = ("imu_t", "imu_w_true", "imu_a_true", "cam_t", "cam_t_imu", "obs_id", "obs_uv_true",
           "obs_plane", "imu_window_start", "gt_q", "gt_p", "gt_v")
@@ -103,6 +105,33 @@ def _vision_cfg():
     return cfg
 
 
+def _tabletop_cfg():
+    """The JAX configuration of tests/test_fused_planes.py:27-52: the
+    tabletop trajectory under the reference's stock plane gates."""
+    cfg = j_sim_config()
+    cfg.sim.traj_duration = 6.0
+    cfg.sim.freq_cam = 20.0
+    cfg.sim.traj_kind = "tabletop"
+    cfg.state.max_slam_features = 0
+    cfg.state.use_plane_constraint = True
+    cfg.state.use_plane_slam_feats = True
+    cfg.state.do_calib_camera_pose = False
+    cfg.state.do_calib_camera_intrinsics = False
+    cfg.state.do_calib_camera_timeoffset = False
+    cfg.num_pts = 50
+    cfg.num_pts_plane = 0
+    cfg.cam_wh = [640, 480]
+    cfg.cam_intrinsics = [300.0, 300.0, 320.0, 240.0, 0.0, 0.0, 0.0, 0.0]
+    cfg.histogram_method = "NONE"
+    cfg.tpu.max_features = 128
+    cfg.tpu.max_obs_per_frame = 64
+    cfg.tpu.max_msckf_update = 24
+    cfg.msckf_options.sigma_pix = 2.0
+    cfg.slam_options.sigma_pix = 2.0
+    cfg.sim.min_feature_gen_distance = 1.0
+    return cfg
+
+
 def scene_arrays(cfg=None, fields=FIELDS) -> dict:
     cfg = cfg or _bench_cfg()
     sim = build_sim(cfg, max_obs=cfg.tpu.max_obs_per_frame)
@@ -167,6 +196,26 @@ def test_committed_vision_scene_matches_build_sim():
     assert on.abs().max() < 1e-9
 
 
+def test_committed_tabletop_scene_matches_build_sim():
+    jcfg = _tabletop_cfg()
+    fresh = scene_arrays(jcfg, VISION_FIELDS)
+    _check_committed(tsim.TABLETOP_SCENE_PATH, VISION_FIELDS, fresh)
+    truth = tsim.load_scene(tsim.TABLETOP_SCENE_PATH, device="cpu")
+    cfg = tabletop_config()
+    for sec in ("state", "tpu", "msckf_options"):
+        for k, v in vars(getattr(cfg, sec)).items():
+            assert getattr(getattr(jcfg, sec), k) == v, (sec, k)
+    for k in ("num_pts", "num_pts_plane", "cam_wh", "cam_intrinsics", "histogram_method", "cam_model"):
+        assert getattr(jcfg, k) == getattr(cfg, k), k
+    assert truth.obs_id.shape[1] == cfg.tpu.max_obs_per_frame
+    # The simulator starts once the platform has moved: 47 camera frames, of
+    # which the JAX test steps min(85, 46).
+    assert truth.cam_t.shape[0] == 47
+    np.testing.assert_allclose(np.diff(truth.cam_t.numpy()), 1.0 / jcfg.sim.freq_cam, atol=1e-9)
+    on = torch.einsum("pki,pi->pk", truth.plane_corners, truth.plane_normal) - truth.plane_d[:, None]
+    assert truth.plane_corners.shape[0] >= 2 and on.abs().max() < 1e-9
+
+
 def test_scene_shape_is_the_bench_scene():
     truth = tsim.load_scene(device="cpu")
     cfg = slice_config()
@@ -189,7 +238,8 @@ if __name__ == "__main__":
     jax.config.update("jax_enable_x64", True)
     for path, cfg, fields in ((tsim.SCENE_PATH, _bench_cfg(), FIELDS),
                               (tsim.PLANE_SCENE_PATH, _plane_cfg(), PLANE_FIELDS),
-                              (tsim.VISION_SCENE_PATH, _vision_cfg(), VISION_FIELDS)):
+                              (tsim.VISION_SCENE_PATH, _vision_cfg(), VISION_FIELDS),
+                              (tsim.TABLETOP_SCENE_PATH, _tabletop_cfg(), VISION_FIELDS)):
         arrays = scene_arrays(cfg, fields)
         np.savez_compressed(path, **arrays)
         print(f"wrote {path} ({Path(path).stat().st_size} bytes, "
