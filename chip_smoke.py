@@ -21,35 +21,35 @@ Phases (any failure raises and the exit code is nonzero):
    wrapper's host time per call;
 4. drive the point path: the bench's simulator scene, 64 Monte-Carlo streams
    from a seeded generator, ``VioEngine`` + ``run_sequence`` over its first
-   48 frames in f32, timed after a warm-up that also counts host
+   24 frames in f32, timed after a warm-up that also counts host
    synchronizations inside 9 steps; check the launch counts, finiteness,
    stream 0's accuracy and the agreement of two streams with an f64 CPU run
    of the port (the pose within the path's limits, and the per-frame count
    of features that passed the χ² gate equal on every stream-frame);
-   profile 5 frames;
+   profile 2 frames;
 5. drive the plane path the same way (``plane_config``, the committed M-PL
-   scene, its first 64 frames, 64 streams, f32): also the plane states and
+   scene, its first 32 frames, 64 streams, f32): also the plane states and
    constraint updates, every final CP within 0.10 m of a true plane, and the
-   per-frame plane counters against the f64 CPU run (40 frames);
+   per-frame plane counters against the f64 CPU run (24 frames);
 5b. drive the MS-PL path the same way (``ms_pl_config``: SLAM landmarks and
-   planes, D = 147, the M-PL scene, 64 frames): also SLAM inits and
+   planes, D = 147, the M-PL scene, 36 frames): also SLAM inits and
    landmarks on every stream, landmark updates, and the per-frame SLAM and
    plane counters against the f64 CPU run (30 frames, the first SLAM inits
    at frame 20); then 4 streams of MS-PT with anchored landmarks
    (``ANCHORED_MSCKF_INVERSE_DEPTH``, planes off) step by step until
    landmarks have moved to a new anchor clone, its launch counts checked;
 6. drive the vision path, the system's main path (``vision_config``, the
-   bench's vision mode): render the first 64 frames of the committed vision scene
+   bench's vision mode): render the first 48 frames of the committed vision scene
    on the card, add each stream's fixed pixel noise, quantize to the 8-bit
    lattice and stage the ring on the card; ``VioEngine.from_config`` →
    ``FusedVisionDriver(cfg, eng, 64)`` → ``init_frontend`` → ``stage_image``
    → ``step_batch`` per frame → ``flush_stream``. A 12-frame warm-up counts
-   the host synchronizations per step (only the one packed pull), then 64
+   the host synchronizations per step (only the one packed pull), then 48
    frames from a fresh state are timed: launch counts, stream 0's accuracy,
    the host detector's plane labels reaching the step over the 64 streams,
    and streams 0–1 against the port's CPU
-   run (frontend f32, filter f64) over 20 frames: track ids and valid
-   flags, the per-frame plane counters (equal) and the pose; a 5-frame profile by range;
+   run (frontend f32, filter f64) over 12 frames: track ids and valid
+   flags, the per-frame plane counters (equal) and the pose; a 2-frame profile by range;
 6b. the fused path's plane update on the tabletop scene (``tabletop_config``,
    the JAX package's plane-firing scene): its 46 frames rendered on the card,
    16 streams through ``step_batch`` in f32: the launch counts, CP plane
@@ -62,14 +62,23 @@ Phases (any failure raises and the exit code is nonzero):
    variant at one stream, D = 156) on an ASL folder that
    ``scripts/make_synth_asl`` writes from the 10 s tabletop scene (frames
    rendered on the card at 752×480, PNGs): the host pipeline with GT init
-   (42 frames, f64), ``--fused`` (30 frames, f64) and ``--no-gt-init --f32``
+   (42 frames, f64), ``--fused`` (16 frames, f64) and ``--no-gt-init --f32``
    (the dynamic init must succeed, then 16 frames): 21 downdates and no gram
    per frame, ATE posyaw below 0.5 m, every output file written, SLAM
    landmarks and a plane in the host path's state, and its first 10 frames
    against the port's CPU run of the same folder (every counter equal, the
    pose within REPLAY_POSE_LIMITS); frames/s, host reads and kernels per
    frame printed;
-9. print the ``{"kernels": [...]}`` line, then the card and the device line last.
+10. the algorithm ladder (``scripts/run_sweep``): the M-PL scene built on
+   the card by the port's ``build_sim`` and held to the committed one (ids
+   equal, floats within 1e-9); then M-PT, MS-PT, M-PL and MS-PL over 20
+   noise seeds of a 6 s room scan, each as 20 streams in f32: exact launch
+   counts, CP planes and SLAM landmarks where the variant has them, every
+   TUM file and the ``ov_eval`` table, streams 0-1 against the port's CPU
+   f64 run (20 frames, every counter equal, the pose within (1e-2 m, 1e-3)),
+   and each variant's mean RMSE and NEES within 3 combined standard errors
+   of the committed JAX reference (``data/sweep_jax_reference.npz``);
+11. print the ``{"kernels": [...]}`` line, then the card and the device line last.
 
 Needs a CUDA card: without one it exits with code 2 and prints no result.
 """
@@ -117,6 +126,14 @@ GRAM_M = 40 * (3 * 12 - 3)
 # and the eight merge slots (M = 3), in f64, and in f32 under ``--f32`` (its
 # dynamic-init mode).
 REPLAY_D = 156
+# The ladder sweep (phase 10) runs its 20 seeds as 20 streams, in f32 with the
+# information form: M-PT and M-PL at D = 114 (one landmark slot and 8 plane
+# slots, as StateLayout gives a planes-off layout too), MS-PT and MS-PL at
+# D = 147 (12 landmark slots). Its downdates: the classic update (M = D) on
+# every variant, the grouped plane update and both init candidates (M = D + 1)
+# on the plane variants, the SLAM update (M = D) and the eight SLAM-init
+# candidates (M = 33) on the SLAM variants.
+SWEEP_SEEDS = 20
 F32, F64 = torch.float32, torch.float64
 # (path, kernel, (B, M, D), dtype) of every launch shape.
 PATH_SHAPES = [
@@ -133,6 +150,9 @@ PATH_SHAPES = [
     *(("tabletop", "kalman_downdate", (TABLETOP_BATCH, M, 114), F32) for M in (114, 115, 3)),
     *(("replay", "kalman_downdate", (1, M, REPLAY_D), dt) for dt in (F32, F64)
       for M in (REPLAY_D, REPLAY_D + 1, 33, 3)),
+    *(("sweep", "gram_reduce", (SWEEP_SEEDS, GRAM_M, D), F64) for D in (114, 147)),
+    *(("sweep", "kalman_downdate", (SWEEP_SEEDS, M, 114), F32) for M in (114, 115)),
+    *(("sweep", "kalman_downdate", (SWEEP_SEEDS, M, 147), F32) for M in (147, 148, 33)),
 ]
 PATH_NAMES = tuple(dict.fromkeys(p for p, *_ in PATH_SHAPES))
 
@@ -414,26 +434,29 @@ class PathSpec(NamedTuple):
     pose_limits: tuple = (1e-2, 1e-3)   # card f32 vs CPU f64: max |Δp| in m, max |Δq|
 
 
+# The earlier paths are cut in depth to pay for the later phases within the
+# time limit (PERF.md §4 lists each cut): the ladder sweep of phase 10 runs
+# the point and plane filters again, at 20 streams, with their own CPU check.
 PATHS = (
     # Phase 4: the point path on the bench scene (slice 1), cut to its first
-    # 48 frames (its CPU check to 20) to pay for the SLAM and tabletop
-    # phases within the time limit.
-    PathSpec("point", "slice_config", "SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 1}, 4, 20, 48),
+    # 24 frames (its CPU check to 12).
+    PathSpec("point", "slice_config", "SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 1}, 4, 12, 24),
     # Phase 5: the plane path on the M-PL scene (slice 3), cut to its first
-    # 64 frames (CPU check 40): the downdate closes the classic update, the
+    # 32 frames (CPU check 24): the downdate closes the classic update, the
     # grouped plane update and both delayed-init candidates; the first plane
-    # state appears at frame 20.
-    PathSpec("plane", "plane_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 4}, 18, 40, 64),
+    # state appears at frame 20. Its sync check covers steps 4-12: the MS-PL
+    # path's (below) covers every plane stage with planes in the state.
+    PathSpec("plane", "plane_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 4}, 4, 24, 32),
     # Phase 5b: MS-PL on the same scene (slice 5): the plane path's downdates,
     # the SLAM update and the eight delayed-init candidates; the first SLAM
-    # inits come at frame 20, so its first 64 frames hold 44 frames of
+    # inits come at frame 20, so its first 36 frames hold 16 frames of
     # landmarks, the sync check covers steps 21-29 and the CPU check frames
     # 1-30. It holds
     # the pose limits of every path: with the classic update's Gram formed
     # and factored in f64, the card's f32 run read at most |Δp| 1.842e-4 m and
     # |Δq| 1.670e-5 over the noise draws of seeds 7-12 (8.178e-3 before;
     # PERF.md §6).
-    PathSpec("ms-pl", "ms_pl_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 13}, 21, 30, 64),
+    PathSpec("ms-pl", "ms_pl_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 13}, 21, 30, 36),
 )
 PLANE_COUNTERS = ("n_planes", "n_plane_init", "n_plane_constraints", "n_plane_merges", "n_plane_dropped")
 SLAM_COUNTERS = ("n_slam", "n_slam_init", "n_slam_update")
@@ -474,6 +497,18 @@ def cpu_run(cfg, sim, n_frames: int, dtype=torch.float64):
     eng = VioEngine.from_config(cfg, device="cpu")
     st, bk = _fresh(eng, cfg, sim_cpu, 2, "cpu", dtype)
     return run_sequence(eng, st, bk, sim_cpu, imu_window=cfg.tpu.max_imu_per_frame, n_frames=n_frames)[2]
+
+
+def _cpu_reference(cfg, arrays: dict, n_frames: int) -> dict:
+    """``cpu_run`` in a process of its own (the ladder sweep submits it to a
+    spawned worker while the card runs the next variant): ``arrays`` holds
+    the noisy scene's fields as numpy arrays; returns the outputs as numpy
+    arrays."""
+    from ov_plane_tpu_torch.sim.simulator import SimData
+
+    torch.set_num_threads(2)
+    sim = SimData(**{k: torch.from_numpy(v) if k != "imu_window_start" else v for k, v in arrays.items()})
+    return {k: v.numpy() for k, v in cpu_run(cfg, sim, n_frames)._asdict().items()}
 
 
 def drive_path(spec: PathSpec):
@@ -642,7 +677,10 @@ def _raw_events(prof):
             for e in prof.profiler.kineto_results.events()]
 
 
-def profile_frames(spec: PathSpec, info: dict, n: int = 5):
+PROFILE_FRAMES = 2      # frames of each path's profile window
+
+
+def profile_frames(spec: PathSpec, info: dict, n: int = PROFILE_FRAMES):
     """Where a frame's time goes (torch.profiler over the n frames after the
     checked window, from the state the path's run kept): device kernel time
     and kernel count per frame, the device's idle share of an unprofiled
@@ -703,9 +741,9 @@ def report_profile(tag, prof, ranges, first, n, frame_wall_ms, wall_ms):
     print(f"{tag} events read in {time.time() - t:.1f} s")
 
 
-VISION_FRAMES = 64      # the first 64 of the bench's 80 vision frames (bench.py:116)
+VISION_FRAMES = 48      # the first 48 of the bench's 80 vision frames (bench.py:116)
 VISION_WARM = 12        # warm-up frames, the host synchronizations counted from the third
-VISION_REF = 20         # frames of streams 0-1 against the port's CPU run
+VISION_REF = 12         # frames of streams 0-1 against the port's CPU run
 ANCHOR_FRAMES = 44      # its frames: the first inits at frame 20 move anchor some 11 frames later
 TABLETOP_LAYERS = dict(texture_cell=0.1, speckle_cells=((0.05, 0.12, 0.30), 0.12))   # tests/test_fused_planes.py
 VISION_PER_FRAME = {"gram_reduce": 1, "kalman_downdate": 12}   # classic 1, plane 1, init 2, merge slots 8
@@ -897,7 +935,7 @@ def drive_vision():
           f"msckf features per frame (mean) {cnt[:, :, 3].mean():.2f}")
     if not rmse0 < 0.5:
         raise RuntimeError(f"stream 0 position RMSE {rmse0:.3f} m is not below 0.5 m")
-    # The plane work this scene gives in 64 frames: the host detector's labels
+    # The plane work this scene gives in its frames: the host detector's labels
     # reach the step. The delayed init finds no candidate in f64, in the JAX
     # package too (the plane witness of tests/test_torch_fused.py, PERF.md
     # §6), so streams 0-1's plane counters are held equal to the CPU f64 run
@@ -946,7 +984,7 @@ def drive_vision():
     return VISION_FRAMES, launches, info
 
 
-def profile_vision(info: dict, n: int = 5):
+def profile_vision(info: dict, n: int = PROFILE_FRAMES):
     """Where a vision frame's time goes: n frames after the warm-up, from its
     driver and state, under torch.profiler (``report_profile``)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1117,7 +1155,7 @@ def drive_tabletop():
 
 REPLAY_FRAMES = 56      # of the 10 s tabletop scene, written as an ASL folder (the dynamic init takes frame 36)
 REPLAY_HOST_FRAMES = 42  # replayed after the GT init at frame 1 (SLAM and plane inits after the 2 s delay)
-REPLAY_FUSED_FRAMES = 30
+REPLAY_FUSED_FRAMES = 16
 REPLAY_DYN_FRAMES = 16  # replayed after the dynamic init
 REPLAY_REF = 10         # frames of the host path held against the port's CPU run
 REPLAY_PER_FRAME = {"gram_reduce": 0, "kalman_downdate": 21}
@@ -1214,13 +1252,13 @@ def drive_replay():
             raise RuntimeError(f"the card's replay disagrees with the CPU run (limits {REPLAY_POSE_LIMITS})")
 
         # Kernels and device time per frame of each mode's replay: profiled
-        # runs of 4 frames after the GT init (the dynamic mode replays the
+        # runs of 2 frames after the GT init (the dynamic mode replays the
         # host path in f32).
         kernels_per_frame = {}
         for mode, flags in (("host", []), ("fused", ["--fused"]), ("dynamic", ["--f32"])):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                pr = run(f"profile_{mode}", [*flags, "--max-frames", "4"])
+                pr = run(f"profile_{mode}", [*flags, "--max-frames", "2"])
                 torch.cuda.synchronize()
             ev = [e for e in _raw_events(prof) if e[1]]
             kernels_per_frame[mode] = len(ev) / pr["n_done"]
@@ -1234,6 +1272,200 @@ def drive_replay():
                 ate=r["ate"]) for m, r in runs.items()},
         kernels_per_frame=kernels_per_frame, card_vs_cpu=(dp, dq))
     return host["n_done"], host["launches"], info
+
+
+SWEEP_REF_FRAMES = 20      # frames of streams 0-1 against the port's CPU f64 run
+SWEEP_PER_FRAME = {"M-PT": {"gram_reduce": 1, "kalman_downdate": 1},     # classic
+                   "MS-PT": {"gram_reduce": 1, "kalman_downdate": 10},   # classic, SLAM update, 8 SLAM inits
+                   "M-PL": {"gram_reduce": 1, "kalman_downdate": 4},     # classic, plane update, 2 plane inits
+                   "MS-PL": {"gram_reduce": 1, "kalman_downdate": 13}}   # all of the above
+SWEEP_SE = 3.0             # the port's mean within 3 combined standard errors of the JAX reference's
+SWEEP_METRICS = ("rmse_pos", "rmse_ori_deg", "nees_pos", "nees_ori")
+
+
+def drive_sweep():
+    """Phase 10: the algorithm ladder (``scripts/run_sweep``) on the card.
+    Builds the M-PL configuration's 30 s scene with the port's ``build_sim``
+    and holds it to the committed one; then runs every variant (M-PT, MS-PT,
+    M-PL, MS-PL) over 20 noise seeds of the 6 s room scan that the committed
+    JAX reference (``data/sweep_jax_reference.npz``) was run on, as 20
+    streams in f32 with the information form: the exact launch counts, CP
+    planes and SLAM landmarks where the variant has them, every TUM file and
+    the ov_eval table, streams 0-1 against the port's CPU f64 run of the
+    same noisy instances (every counter equal, the pose within (1e-2 m,
+    1e-3)), and each variant's mean RMSE and NEES within SWEEP_SE combined
+    standard errors of JAX's over its 20 seeds. Returns (frames, launches,
+    info) summed over the variants."""
+    import concurrent.futures
+    import contextlib
+    import io
+    import math
+    import multiprocessing
+    import tempfile
+
+    import numpy as np
+
+    from ov_plane_tpu_torch.eval.metrics import rmse_nees
+    from ov_plane_tpu_torch.models.manager import StepOutput
+    from ov_plane_tpu_torch import convert
+    from ov_plane_tpu_torch.ops import kernels
+    from ov_plane_tpu_torch.scripts import ov_eval, run_sweep
+    from ov_plane_tpu_torch.sim import simulator
+    from ov_plane_tpu_torch.utils.config import plane_config
+
+    tag = "[sweep]"
+    ref_path = Path(simulator.__file__).resolve().parents[1] / "data" / "sweep_jax_reference.npz"
+    with np.load(ref_path) as z:
+        ref = {k: z[k] for k in z.files}
+    duration, seeds = float(ref["duration"]), int(ref["seeds"])
+    if seeds != SWEEP_SEEDS:
+        raise RuntimeError(f"the JAX reference has {seeds} seeds, not {SWEEP_SEEDS}")
+
+    # 1. The M-PL configuration's scene, built on the card, against the committed one.
+    cfg = plane_config()
+    torch.cuda.synchronize()
+    t = time.time()
+    truth = simulator.build_sim(cfg, max_obs=cfg.tpu.max_obs_per_frame, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.time() - t
+    worst = 0.0
+    with np.load(simulator.PLANE_SCENE_PATH) as z:
+        for k in z.files:
+            a = getattr(truth, k)
+            a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+            if a.shape != z[k].shape:
+                raise RuntimeError(f"build_sim's {k} has the shape {a.shape}, the committed scene's {z[k].shape}")
+            if np.issubdtype(z[k].dtype, np.integer):
+                if not np.array_equal(a, z[k]):
+                    raise RuntimeError(f"build_sim's {k} differs from the committed scene's")
+            else:
+                worst = max(worst, float(np.abs(a - z[k]).max()))
+    print(f"{tag} build_sim of the M-PL scene on the card: {truth.cam_t.shape[0]} frames, {truth.imu_t.shape[0]} IMU "
+          f"samples, {truth.feat_p.shape[0]} map points in {build_s:.2f} s; ids and plane ids equal to the committed "
+          f"scene's, floats within {worst:.3e} (limit 1e-9)")
+    if not worst < 1e-9:
+        raise RuntimeError("build_sim departs from the committed M-PL scene by more than 1e-9")
+
+    # 2-8. The ladder.
+    truths, runs, info = {}, {}, {"build_sim_s": build_s, "scene_max_abs_err": worst, "variants": {}}
+    launches_total = {"gram_reduce": 0, "kalman_downdate": 0}
+    frames_total, stream_frames, wall_total = 0, 0, 0.0
+    # Each variant's CPU f64 reference runs in a spawned worker while the card
+    # runs the next variant (two CPU threads beside the card's host thread).
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="ovp_sweep_") as out, \
+            concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        cpu_refs = {}
+        for name, (max_slam, use_planes) in run_sweep.VARIANTS.items():
+            vcfg = run_sweep.make_config(duration, "", max_slam, use_planes)
+            if use_planes not in truths:
+                truths[use_planes] = simulator.build_sim(vcfg, max_obs=vcfg.tpu.max_obs_per_frame, device="cuda")
+            sim = run_sweep.noisy_scene(vcfg, seeds, "cuda", truths[use_planes])
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t = time.time()
+            run = run_sweep.run_variant(vcfg, seeds, "cuda", sim=sim)
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            launches = {"gram_reduce": kernels.gram_reduce.launches,
+                        "kalman_downdate": kernels.kalman_downdate.launches}
+            F = run.t.shape[0]
+            outs = run.outs
+            print(f"{tag} {name}: D={run.eng.layout.dim}, {seeds}x{F} stream-frames in {wall:.3f} s: "
+                  f"{seeds * F / wall:.2f} stream-frames/s; launches {launches}")
+            for k, n in launches.items():
+                if n != SWEEP_PER_FRAME[name][k] * F:
+                    raise RuntimeError(f"{name}: {k} launched {n} times over {F} frames, "
+                                       f"not {SWEEP_PER_FRAME[name][k]} per frame")
+            for k, v in outs._asdict().items():
+                if v.is_floating_point() and not torch.isfinite(v).all():
+                    raise RuntimeError(f"{name}: non-finite output {k}")
+            with_planes = int((outs.n_planes.max(dim=1).values > 0).sum())
+            first_plane = (outs.n_planes.max(dim=0).values > 0).nonzero()
+            with_slam = int((outs.n_slam.max(dim=1).values > 0).sum())
+            print(f"{tag} {name}: streams with a CP plane in the state {with_planes} of {seeds} (first at frame "
+                  f"{int(first_plane[0]) + 1 if first_plane.numel() else None}; "
+                  f"JAX {int(ref[f'{name}/first_plane_frame'])}), "
+                  f"plane constraint updates {int(outs.n_plane_constraints.sum())}; streams with SLAM landmarks "
+                  f"{with_slam} (JAX's first at frame {int(ref[f'{name}/first_slam_frame'])}), landmark updates "
+                  f"{int(outs.n_slam_update.sum())}")
+            if use_planes and not (with_planes > 0 and int(outs.n_plane_constraints.sum()) > 0):
+                raise RuntimeError(f"{name}: no CP plane entered the state, or no constraint update")
+            if max_slam > 0 and not (with_slam > 0 and int(outs.n_slam_update.sum()) > 0):
+                raise RuntimeError(f"{name}: no SLAM landmark entered the state, or no landmark update")
+            if not use_planes and with_planes:
+                raise RuntimeError(f"{name}: a plane entered the state of a planes-off variant")
+            run_sweep.write_variant(out, name, "room_scan", run, truth=not runs)
+            runs[name] = run
+
+            # Streams 0-1 of the same noisy instances through the port on the CPU in f64.
+            host = {k: (v[:2] if k in convert.NOISY_FIELDS else v).cpu().numpy() if isinstance(v, torch.Tensor)
+                    else v for k, v in sim._asdict().items()}
+            cpu_refs[name] = (time.time(), pool.submit(_cpu_reference, vcfg, host, SWEEP_REF_FRAMES))
+
+            # Statistics against the committed JAX reference.
+            m = rmse_nees(outs.q.double(), outs.p.double(), outs.cov_diag_imu[..., 0:3].double(),
+                          outs.cov_diag_imu[..., 3:6].double(), truths[use_planes].gt_q[1:F + 1].double(),
+                          truths[use_planes].gt_p[1:F + 1].double())
+            stats = {}
+            for k in SWEEP_METRICS:
+                port, jax_ref = m[k].cpu().numpy(), ref[f"{name}/{k}"]
+                se = math.sqrt(port.var(ddof=1) / port.size + jax_ref.var(ddof=1) / jax_ref.size)
+                z = abs(port.mean() - jax_ref.mean()) / se if se > 0 else 0.0
+                stats[k] = dict(port=float(port.mean()), jax=float(jax_ref.mean()), se=se, z=z)
+                print(f"{tag} {name}: {k} mean card {port.mean():.5f} (std {port.std(ddof=1):.5f}) vs JAX "
+                      f"{jax_ref.mean():.5f} (std {jax_ref.std(ddof=1):.5f}); combined standard error {se:.5f}, "
+                      f"|difference| = {z:.2f} of it (limit {SWEEP_SE})")
+            bad = [k for k, v in stats.items() if not v["z"] <= SWEEP_SE]
+            if bad:
+                raise RuntimeError(f"{name}: the mean {bad} departs from the JAX reference by more than "
+                                   f"{SWEEP_SE} combined standard errors")
+            info["variants"][name] = dict(D=run.eng.layout.dim, frames=F, wall_s=wall,
+                                          stream_frames_per_s=seeds * F / wall, launches=launches,
+                                          stats=stats, streams_with_planes=with_planes,
+                                          streams_with_slam=with_slam)
+            for k in launches_total:
+                launches_total[k] += launches[k]
+            frames_total += F
+            stream_frames += seeds * F
+            wall_total += wall
+
+        # 6. The card's f32 runs against the CPU f64 references.
+        for name, (max_slam, use_planes) in run_sweep.VARIANTS.items():
+            t0, future = cpu_refs[name]
+            cpu = StepOutput(**{k: torch.from_numpy(v) for k, v in future.result().items()})
+            outs = runs[name].outs
+            dp = (outs.p[:2, :SWEEP_REF_FRAMES].double().cpu() - cpu.p).abs().max().item()
+            dq = (outs.q[:2, :SWEEP_REF_FRAMES].double().cpu() - cpu.q).abs().max().item()
+            print(f"{tag} {name}: card f32 vs CPU f64 (ready {time.time() - t0:.1f} s after its submission), "
+                  f"2 streams x {SWEEP_REF_FRAMES} frames: max|dp|={dp:.3e} m max|dq|={dq:.3e}")
+            agree = compare_counters(f"{tag} {name}", outs, cpu, SWEEP_REF_FRAMES,
+                                     ("n_msckf_used", "n_bank", "n_clones")
+                                     + (PLANE_COUNTERS if use_planes else ()) + (SLAM_COUNTERS if max_slam else ()))
+            if min(agree.values()) < 1.0:
+                raise RuntimeError(f"{name}: per-frame counters differ from the CPU f64 run's: {agree}")
+            if not (dp < 1e-2 and dq < 1e-3):
+                raise RuntimeError(f"{name}: the card's run disagrees with the CPU f64 run (limits (1e-2 m, 1e-3))")
+            info["variants"][name]["card_vs_cpu"] = (dp, dq)
+
+        # 3. Every TUM file and the ov_eval table.
+        files = [Path(out) / "truths" / "room_scan.txt"] + [
+            Path(out) / "algorithms" / v / "room_scan" / f"estimate_{k}.txt" for v in runs for k in range(seeds)]
+        missing = [str(f) for f in files if not (f.exists() and f.stat().st_size > 0)]
+        if missing:
+            raise RuntimeError(f"TUM files missing or empty: {missing[:5]}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ov_eval.main(["error_comparison", str(Path(out) / "truths"),
+                          *(str(Path(out) / "algorithms" / v) for v in runs), "--device", "cuda"])
+        table = buf.getvalue()
+        print(f"{tag} {len(files)} TUM files written; the ov_eval error_comparison table:")
+        print(table, end="")
+        rows = {line.split()[0]: line.split()[1] for line in table.splitlines()[1:-1]}
+        if sorted(rows) != sorted(runs) or any("±" not in c for c in rows.values()):
+            raise RuntimeError(f"the ov_eval table lacks a variant or a value: {rows}")
+    info.update(stream_frames_per_s=stream_frames / wall_total, ov_eval=rows)
+    return frames_total, launches_total, info
 
 
 def main() -> int:
@@ -1285,6 +1517,9 @@ def main() -> int:
     t = time.time()
     results["replay"] = drive_replay()
     print(f"[replay] phase took {time.time() - t:.1f} s")
+    t = time.time()
+    results["sweep"] = drive_sweep()
+    print(f"[sweep] phase took {time.time() - t:.1f} s")
 
     meta = {
         "gram_reduce": ("ov_plane_tpu_torch/csrc/gram_reduce.cu",

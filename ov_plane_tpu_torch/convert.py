@@ -9,10 +9,10 @@ landmark slots (``slam_p``, ``slam_p_fej``, ``slam_id``, ``slam_active``,
 ``plane_id``, ``plane_active``), a bank its features' plane ids and SLAM
 marks (``is_slam``, ``slam_slot``); simulator data carries the
 per-observation plane ids (``obs_plane``) and, for a plane scene, the true
-plane CPs. A fused frontend's tracker state (:func:`frontend_from_arrays`)
-carries its prepared pyramid, so both packages can start one step from the
-same state. Fields the port does not hold yet (ground-truth injection) are
-ignored. Every function makes its tensors on the card unless the caller
+plane CPs; :func:`sim_from_arrays` takes one draw or a vmapped batch of
+draws, noisy or as the noiseless scene with its map. A fused frontend's
+tracker state (:func:`frontend_from_arrays`) carries its prepared pyramid,
+so both packages can start one step from the same state. Every function makes its tensors on the card unless the caller
 asks for the CPU.
 """
 
@@ -31,6 +31,10 @@ from ov_plane_tpu_torch.sim.simulator import SimData, truth_from_arrays
 from ov_plane_tpu_torch.state.layout import StateLayout
 from ov_plane_tpu_torch.state.vio_state import VioState
 from ov_plane_tpu_torch.utils.torchenv import resolve_device
+
+
+# The fields of a simulator draw that carry its noise (the rest is the scene's).
+NOISY_FIELDS = ("imu_w", "imu_a", "gt_bg", "gt_ba", "obs_uv", "gt_bg_cam", "gt_ba_cam")
 
 
 def stack_streams(streams: Sequence[Mapping[str, np.ndarray]]) -> dict:
@@ -72,9 +76,33 @@ def sim_from_streams(streams: Sequence[Mapping[str, np.ndarray]], dtype=torch.fl
     pixels, bias truth) are stacked.
     """
     device = resolve_device(device)
-    truth = truth_from_arrays(streams[0], dtype, device)
-    noisy = stack_streams([{k: s[k] for k in ("imu_w", "imu_a", "gt_bg", "gt_ba", "obs_uv",
-                                               "gt_bg_cam", "gt_ba_cam")} for s in streams])
+    scene = {k: v for k, v in streams[0].items() if k not in NOISY_FIELDS}
+    return _sim(scene, stack_streams([{k: s[k] for k in NOISY_FIELDS} for s in streams]), dtype, device)
+
+
+def sim_from_arrays(arrays: Mapping[str, np.ndarray], noisy: bool = True, dtype=torch.float64,
+                    device="cuda"):
+    """The port's simulator data from one JAX ``SimData`` (field name ->
+    numpy array), one draw or a vmapped batch of draws (the noisy fields
+    then carry a leading stream dimension, and the scene-wide fields, equal
+    over the batch, are taken from the first draw).
+
+    ``noisy``: a ``SimData`` of B streams (B = 1 for one draw) with the
+    draw's noise; otherwise the noiseless ``SimTruth`` with the map and each
+    observation's truth (``feat_p``, ``feat_plane``, ``obs_gt_p``,
+    ``obs_gt_cp``, ``plane_cp``)."""
+    device = resolve_device(device)
+    batched = np.ndim(arrays["imu_w"]) == 3
+    scene = {k: np.asarray(v)[0] if batched else np.asarray(v) for k, v in arrays.items() if k not in NOISY_FIELDS}
+    if not noisy:
+        return truth_from_arrays(scene, dtype, device)
+    return _sim(scene, {k: np.asarray(arrays[k]) if batched else np.asarray(arrays[k])[None] for k in NOISY_FIELDS},
+                dtype, device)
+
+
+def _sim(scene, noisy, dtype, device) -> SimData:
+    """SimData from the scene-wide arrays and the [B, ...] noisy ones."""
+    truth = truth_from_arrays(scene, dtype, device)
     t = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in noisy.items()}
     return SimData(
         imu_t=truth.imu_t, cam_t=truth.cam_t, cam_t_imu=truth.cam_t_imu, obs_id=truth.obs_id,

@@ -1,20 +1,28 @@
-"""Synthetic camera frames of the simulator's room, rendered on the device.
+"""Synthetic camera frames of the simulator's world, rendered on the device.
 
-Counterpart of ``render_frame_textured`` in ``ov_plane_tpu/frontend/
-synthetic.py`` with ``blobs=False``, as the vision bench calls it: every
-pixel's ray is cast against the room's planes, and the nearest hit gets
-world-anchored procedural texture (three octaves of value noise, band-limited
-by their on-screen cell size, plus sparse speckle dots). The numpy original
-loops over planes and octaves on the host; here the same per-pixel math runs
-as tensor operations on the image's device, in float64. The integer hashes
-of the texture stay int64, as there. The blob overlay (``render_frame``)
-belongs to the simulator's port (ROADMAP item 9c).
+Counterpart of ``ov_plane_tpu/frontend/synthetic.py``:
+
+* :func:`render_frame` draws every map point as a depth-scaled world patch
+  of its own band-limited texture on a dark background (the blob frames of
+  ``scripts/make_synth_asl`` without ``--textured``);
+* :func:`render_frame_textured` casts every pixel's ray against the room's
+  planes and gives the nearest hit world-anchored procedural texture (three
+  octaves of value noise, band-limited by their on-screen cell size, plus
+  sparse speckle dots), with the blobs of :func:`render_frame` drawn over
+  it when the map is given (the JAX function's ``blobs=True``).
+
+The numpy original loops over planes, octaves and map points on the host;
+here the same per-pixel math runs as tensor operations on the image's
+device, in float64. The integer hashes of the texture stay int64, and the
+random draws of the blob textures and of the background come from the same
+seeded numpy generators (drawn once on the host and cached).
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ov_plane_tpu_torch.ops import cams
@@ -121,18 +129,117 @@ def _speckle(s: torch.Tensor, t: torch.Tensor, cell: float, seed: int, px_per_m:
     return out
 
 
+_BLOB_T = 17          # master texture resolution of a blob
+_BLOB_HALF_MAX = 12   # the largest half-size of a blob's footprint in pixels
+
+
+@functools.lru_cache(maxsize=8)
+def _blob_masters(n: int) -> np.ndarray:
+    """[n, T, T] float32 master textures of map points 0..n−1: uniform draws
+    of ``default_rng(1000 + idx)``, band-limited by a separable [1 4 6 4 1]
+    kernel (the camera PSF analogue) and stretched to [0.45, 1] with a
+    bright centre, in the numpy original's float32 arithmetic."""
+    T = _BLOB_T
+    k5 = np.asarray([1.0, 4.0, 6.0, 4.0, 1.0], np.float32)
+    k5 /= k5.sum()
+    out = np.empty((n, T, T), np.float32)
+    for idx in range(n):
+        master = np.random.default_rng(1000 + idx).uniform(0.45, 1.0, size=(T, T)).astype(np.float32)
+        master = np.apply_along_axis(lambda r: np.convolve(r, k5, "same"), 0, master)
+        master = np.apply_along_axis(lambda r: np.convolve(r, k5, "same"), 1, master)
+        lo, hi = master.min(), master.max()
+        master = 0.45 + 0.55 * (master - lo) / max(hi - lo, 1e-6)
+        master[T // 2, T // 2] = 1.0
+        out[idx] = master
+    return out
+
+
+@functools.lru_cache(maxsize=4)
+def _background(seed: int, wh: tuple) -> np.ndarray:
+    """[H, W] float32 dark background: 0.08 plus uniform [0, 0.02) noise of ``default_rng(seed)``."""
+    w, h = wh
+    img = np.full((h, w), 0.08, np.float32)
+    img += np.random.default_rng(seed).uniform(0, 0.02, size=(h, w)).astype(np.float32)
+    return img
+
+
+def render_frame(feat_p, R_GtoI, p_IinG, R_ItoC, p_IinC, zeta, wh, model=cams.RADTAN, max_depth: float = 25.0,
+                 patch_world: float = 0.10, seed: int = 0) -> torch.Tensor:
+    """[H, W] float32 image in [0, 1]: dark background plus one textured
+    patch per map point in front of the camera.
+
+    Each point is a world patch ``patch_world`` metres across (3-12 px half
+    size by depth), resampled bilinearly from the point's own master texture
+    and anchored at its sub-pixel projection, so the trackable centre stays
+    on the projected 3D point. Patches are drawn in map order, a later one
+    over an earlier one, as the original's loop draws them. feat_p [N, 3]
+    lies on the device to render on."""
+    f64 = torch.float64
+    feat_p = torch.as_tensor(feat_p, dtype=f64)
+    dev = feat_p.device
+    t64 = lambda a: torch.as_tensor(a, dtype=f64, device=dev)  # noqa: E731
+    R_GtoI, p_IinG, R_ItoC, p_IinC = t64(R_GtoI), t64(p_IinG), t64(R_ItoC), t64(p_IinC)
+    zeta_t = t64(zeta.tolist() if hasattr(zeta, "tolist") else zeta)
+    w, h = (int(x) for x in wh)
+    img = torch.as_tensor(_background(int(seed), (w, h)), device=dev).flatten().clone()
+    N = feat_p.shape[0]
+    if N == 0:
+        return torch.clamp(img.view(h, w), 0.0, 1.0)
+    f = 0.5 * (zeta_t[0] + zeta_t[1])
+
+    p_FinC = ((feat_p - p_IinG) @ R_GtoI.T) @ R_ItoC.T + p_IinC
+    z = p_FinC[:, 2]
+    ok = (z > 0.2) & (z < max_depth)
+    z_ok = torch.where(ok, z, torch.ones_like(z))
+    uv = cams.distort_norm(p_FinC[:, :2] / z_ok[:, None], zeta_t, model)
+    uv = torch.where(ok[:, None], uv, torch.zeros_like(uv))
+    half = torch.clamp(torch.round(0.5 * patch_world * f / z_ok), 3, _BLOB_HALF_MAX).to(torch.int64)
+    u, v = uv[:, 0], uv[:, 1]
+    iu, iv = torch.round(u).to(torch.int64), torch.round(v).to(torch.int64)
+    drawn = ok & (iu >= half) & (iu < w - half) & (iv >= half) & (iv < h - half)
+
+    T = _BLOB_T
+    off = torch.arange(-_BLOB_HALF_MAX, _BLOB_HALF_MAX + 1, device=dev)
+    inside = (off.abs()[None, :] <= half[:, None])                                     # [N, S]
+    hf = half.to(f64)[:, None]
+    tx = (off[None, :] + (iu - u)[:, None]) / hf * (T // 2 - 1) + T // 2              # [N, S] columns
+    ty = (off[None, :] + (iv - v)[:, None]) / hf * (T // 2 - 1) + T // 2              # [N, S] rows
+    tx0 = torch.clamp(torch.floor(tx), 0, T - 2)
+    ty0 = torch.clamp(torch.floor(ty), 0, T - 2)
+    fx = torch.clamp(tx - tx0, 0, 1)[:, None, :]
+    fy = torch.clamp(ty - ty0, 0, 1)[:, :, None]
+    tx0, ty0 = tx0.to(torch.int64)[:, None, :], ty0.to(torch.int64)[:, :, None]
+    master = torch.as_tensor(_blob_masters(N), device=dev).to(f64)                   # [N, T, T]
+    k = torch.arange(N, device=dev)[:, None, None]
+    patch = (master[k, ty0, tx0] * (1 - fx) * (1 - fy) + master[k, ty0, tx0 + 1] * fx * (1 - fy)
+             + master[k, ty0 + 1, tx0] * (1 - fx) * fy + master[k, ty0 + 1, tx0 + 1] * fx * fy)   # [N, S, S]
+    rows = iv[:, None, None] + off[None, :, None]
+    cols = iu[:, None, None] + off[None, None, :]
+    use = drawn[:, None, None] & inside[:, :, None] & inside[:, None, :]
+    pix = torch.where(use, rows * w + cols, 0)
+    # The last point drawn over a pixel owns it: the largest index among
+    # the patches covering it.
+    owner = torch.full((h * w,), -1, dtype=torch.int64, device=dev)
+    owner.scatter_reduce_(0, pix[use], k.expand_as(pix)[use], reduce="amax")
+    win = use & (owner[pix] == k)
+    img[pix[win]] = patch[win].to(torch.float32)
+    return torch.clamp(img.view(h, w), 0.0, 1.0)
+
+
 def render_frame_textured(plane_corners, plane_normal, plane_d, R_GtoI, p_IinG, R_ItoC, p_IinC, zeta, wh,
                           model=cams.RADTAN, texture_cell: float = 0.22, seed: int = 0,
-                          speckle_cells: tuple = (0.15,)) -> torch.Tensor:
+                          speckle_cells: tuple = (0.15,), feat_p=None,
+                          feat_patch_world: float = 0.12) -> torch.Tensor:
     """[H, W] float32 image in [0, 1] of the cuboid room from the camera pose
-    (R_GtoI, p_IinG) with extrinsics (R_ItoC, p_IinC) and intrinsics zeta:
-    the JAX function with ``blobs=False`` (its other arguments serve the
-    blob overlay).
+    (R_GtoI, p_IinG) with extrinsics (R_ItoC, p_IinC) and intrinsics zeta.
 
     plane_corners [P, 4, 3] (tl, tr, bl, br), plane_normal [P, 3], plane_d
     [P] with n·x = d: tensors on the device to render on. Each entry of
     ``speckle_cells`` is a speckle layer: a cell size (dot radii 0.05-0.15
-    of the cell) or a tuple (cell, r_lo, r_hi)."""
+    of the cell) or a tuple (cell, r_lo, r_hi). Given the map ``feat_p``
+    [N, 3], the blobs of :func:`render_frame` (``feat_patch_world`` across)
+    are drawn over the texture: the JAX function with ``blobs=True``, its
+    default; without it, the JAX function with ``blobs=False``."""
     f64 = torch.float64
     dev = plane_corners.device
     t64 = lambda a: torch.as_tensor(a, dtype=f64, device=dev)  # noqa: E731
@@ -188,4 +295,10 @@ def render_frame_textured(plane_corners, plane_normal, plane_d, R_GtoI, p_IinG, 
             val = val + _speckle(s_c, t_c, cell_s, seed + 29 * p + 5 + 17 * si, px_per_m, r_lo=r_lo, r_hi=r_hi)
         best_t[sel] = t_hit
         tex[sel] = torch.clamp(val, 0.02, 1.0).to(torch.float32)
+    if feat_p is not None:
+        # Blob footprints (every blob value is at least 0.45, the background
+        # below 0.10) replace the texture.
+        blob = render_frame(t64(feat_p), R_GtoI, p_IinG, R_ItoC, p_IinC, zeta_t, wh, model=model,
+                            patch_world=feat_patch_world, seed=seed)
+        tex = torch.where(blob > 0.12, blob, tex)
     return torch.clamp(tex, 0.0, 1.0)

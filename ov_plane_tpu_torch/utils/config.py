@@ -5,7 +5,7 @@ reads (the point-MSCKF path, SLAM landmarks, the plane filter stages, the
 fused vision frontend and the dataset replay): the same dataclass names,
 field names and defaults, so one set of overrides configures both packages,
 and :func:`load_yaml` reads the reference's ``estimator_config.yaml`` into
-it. The ZUPT, ArUco and simulator fields are carried for the YAML surface:
+it. The ZUPT and ArUco fields are carried for the YAML surface:
 ``VioEngine.from_config`` refuses the features that are not ported yet.
 """
 
@@ -142,20 +142,30 @@ class TrackPlaneOptions:
 
 @dataclass
 class SimOptions:
-    """Simulator options (reference: VioManagerOptions.h sim_* block). The
-    port's scenes are committed, so only the IMU rate of their noise is
-    read; the other fields are the YAML surface."""
+    """Simulator options (reference: VioManagerOptions.h sim_* block), read
+    by ``sim.simulator.build_sim``: the trajectory (``traj_path`` or the
+    procedural ``traj_kind``), the camera and IMU rates, the start distance,
+    the feature generation distances and the map seed."""
 
     seed_state_init: int = 0
     seed_perturb: int = 0
     seed_measurements: int = 0
     do_perturbation: bool = False
-    traj_path: str = ""
+    traj_path: str = ""  # empty -> procedural trajectory
+    # Seconds of a loaded trajectory to skip before the replay starts
+    # (procedural kinds ignore it).
+    traj_start: float = 0.0
     distance_threshold: float = 1.2
     freq_cam: float = 10.0
     freq_imu: float = 400.0
     min_feature_gen_distance: float = 2.0
     max_feature_gen_distance: float = 5.0
+    # Procedural trajectory (no reference analogue): its length, its kind
+    # (room_scan, slow_scan, corridor, tabletop) and a rigid world
+    # translation (the planes follow through the trajectory's bounding box).
+    traj_duration: float = 60.0
+    traj_kind: str = "room_scan"
+    world_offset: tuple = (0.0, 0.0, 0.0)
 
 
 @dataclass
@@ -467,8 +477,14 @@ def slice_config() -> VioConfig:
     sim mode: bank 192, 96 observation slots, 40 features per update,
     information-form compression, calibration off, D = 93) with plane
     constraints off. Its 30 s, 60-point scene is the committed one
-    (``sim.simulator.load_scene``)."""
+    (``sim.simulator.load_scene``), which ``sim.simulator.build_sim``
+    rebuilds from this configuration. Beside the ladder's M-PT variant
+    (``scripts/run_sweep.make_config``) it has one plane slot (D = 93, not
+    114) and 60 points, not 40."""
     cfg = sim_config()
+    cfg.sim.traj_duration = 30.0
+    cfg.num_pts = 60
+    cfg.num_pts_plane = 0
     cfg.state.max_slam_features = 0
     cfg.state.do_calib_camera_pose = False
     cfg.state.do_calib_camera_intrinsics = False
@@ -490,8 +506,12 @@ def plane_config() -> VioConfig:
     with point-on-plane constraints), with information-form compression on
     as the sweep sets it on an accelerator. Calibration off; K = 12 clone
     slots, 8 plane slots, D = 15 + 72 + 3 + 24 = 114. Its scene is the
-    committed one (``sim.simulator.PLANE_SCENE_PATH``)."""
+    committed one (``sim.simulator.PLANE_SCENE_PATH``), which
+    ``sim.simulator.build_sim`` rebuilds from this configuration."""
     cfg = sim_config()
+    cfg.sim.traj_duration = 30.0
+    cfg.num_pts = 40
+    cfg.num_pts_plane = 40
     cfg.state.max_slam_features = 0
     cfg.state.do_calib_camera_pose = False
     cfg.state.do_calib_camera_intrinsics = False

@@ -29,13 +29,17 @@ SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in
 # (D = 147: the SLAM update, the plane updates, the SLAM init's 33 rows), the
 # anchored MS-PT run's at 4 streams, the tabletop run's at 16 and the
 # dataset replay's at one stream (D = 156: the classic and SLAM updates, the
-# plane updates, the SLAM init's 33 rows, the merge slots). Every shape runs
+# plane updates, the SLAM init's 33 rows, the merge slots) and the ladder
+# sweep's at its 20 seeds (M-PT and M-PL at D = 114, MS-PT and MS-PL at
+# D = 147). Every shape runs
 # in both types: the grams in f64 (the classic update forms its Gram in f64
 # whatever the filter's type), the replay's downdates in f64 and in f32.
 SWEEP = [(64, 1320, 93), (64, 93, 93), (64, 1320, 114), (64, 114, 114), (64, 115, 114), (64, 3, 114),
          (64, 1320, 147), (64, 147, 147), (64, 148, 147), (64, 33, 147),
          (4, 1320, 147), (4, 147, 147), (4, 33, 147), (16, 114, 114), (16, 115, 114), (16, 3, 114),
-         (1, 156, 156), (1, 157, 156), (1, 33, 156), (1, 3, 156)] + SWEEP
+         (1, 156, 156), (1, 157, 156), (1, 33, 156), (1, 3, 156),
+         (20, 1320, 114), (20, 114, 114), (20, 115, 114), (20, 1320, 147), (20, 147, 147), (20, 148, 147),
+         (20, 33, 147)] + SWEEP
 
 
 def _inputs(B, M, D, dtype, g, offset):

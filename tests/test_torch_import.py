@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -270,3 +271,100 @@ def test_replay_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_pat
 def test_native_voxel_map_is_the_jax_source():
     assert (PACKAGE / "native" / "ikd_grid.cpp").read_bytes() == (ROOT / "ov_plane_tpu" / "native" /
                                                                    "ikd_grid.cpp").read_bytes()
+
+
+SIM_SLICE = ("ov_plane_tpu_torch.ops.spline", "ov_plane_tpu_torch.sim.trajectory", "ov_plane_tpu_torch.sim.simulator",
+             "ov_plane_tpu_torch.frontend.synthetic", "ov_plane_tpu_torch.convert",
+             "ov_plane_tpu_torch.scripts.make_synth_asl", "ov_plane_tpu_torch.scripts.run_sweep",
+             "ov_plane_tpu_torch.scripts.ov_eval", "ov_plane_tpu_torch.scripts.run_monte_carlo",
+             "ov_plane_tpu_torch.scripts.run_sim", "ov_plane_tpu_torch.scripts.run_real_suite")
+STANDS_ALONE = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|flax|ov_plane_tpu|PIL|cv2|yaml|matplotlib)\b",
+                          re.MULTILINE)
+
+
+def test_simulator_slice_loads_no_jax_image_or_plot_library():
+    """The simulator and the Monte-Carlo entry points import none of JAX, the
+    JAX package, PIL, OpenCV, PyYAML or matplotlib (the card's machine has
+    no JAX, no image library and no plotting library)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SIM_SLICE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ov_plane_tpu', 'PIL', 'cv2', 'yaml', 'matplotlib')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    assert set(SIM_SLICE) <= set(MODULES)
+
+
+@pytest.mark.parametrize("module", SIM_SLICE)
+def test_simulator_slice_source_stands_alone(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    hits = STANDS_ALONE.findall(path.read_text())
+    assert not hits, f"{path.name} imports {hits}"
+
+
+def _flat(cfg) -> dict:
+    import dataclasses
+
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update({f"{f.name}.{g.name}": getattr(v, g.name) for g in dataclasses.fields(v)})
+        else:
+            out[f.name] = v
+    return out
+
+
+def test_sweep_variants_are_the_named_configurations():
+    """``run_sweep.make_config`` of a ladder variant, with the information
+    form ``run_variant`` turns on on the card, against the configuration
+    that names the same variant: M-PL is ``plane_config`` and MS-PL
+    ``ms_pl_config`` field by field; ``slice_config`` (the bench's point
+    path) departs from M-PT only where the bench scene does (one plane
+    slot, 60 points, the unread plane-feature flag)."""
+    from ov_plane_tpu_torch.scripts.run_sweep import VARIANTS, make_config
+    from ov_plane_tpu_torch.utils.config import ms_pl_config
+
+    def variant(name):
+        cfg = make_config(30.0, "", *VARIANTS[name])
+        cfg.tpu.use_info_compression = True
+        return _flat(cfg)
+
+    def diff(a, b):
+        return {k for k in a if a[k] != b[k]}
+
+    assert diff(variant("M-PL"), _flat(plane_config())) == set()
+    assert diff(variant("MS-PL"), _flat(ms_pl_config())) == set()
+    assert diff(variant("M-PT"), _flat(slice_config())) == {"tpu.max_planes", "num_pts", "state.use_plane_slam_feats"}
+    assert diff(variant("MS-PT"), variant("M-PT")) == {"state.max_slam_features"}
+
+
+def test_simulator_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
+    from ov_plane_tpu_torch.scripts import (make_synth_asl, ov_eval, run_monte_carlo, run_real_suite, run_sim,
+                                            run_sweep)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = make_synth_asl.synth_config(duration=2.0, num_pts=5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulator.build_sim(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_synth_asl.write_sim_asl(str(tmp_path / "seq"), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_sweep.main(["--seeds", "1", "--duration", "2", "--out", str(tmp_path / "sweep")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_monte_carlo.main(["--seeds", "1", "--duration", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_sim.main(["--duration", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_real_suite.main(["--dry-run", "--out", str(tmp_path / "suite")])
+    gt = tmp_path / "gt.txt"
+    np.savetxt(gt, np.column_stack([np.arange(20.0), np.zeros((20, 6)), np.ones(20)]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ov_eval.eval_one(str(gt), str(gt))
+    assert ov_eval.eval_one(str(gt), str(gt), device="cpu")["ate_pos"] == 0.0
+    truth = simulator.build_sim(cfg, device="cpu")
+    assert truth.imu_t.device.type == "cpu" and truth.feat_p.shape[0] > 0
