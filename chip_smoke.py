@@ -21,30 +21,32 @@ Phases (any failure raises and the exit code is nonzero):
    wrapper's host time per call;
 4. drive the point path: the bench's simulator scene, 64 Monte-Carlo streams
    from a seeded generator, ``VioEngine`` + ``run_sequence`` over its first
-   24 frames in f32, timed after a warm-up that also counts host
-   synchronizations inside 9 steps; check the launch counts, finiteness,
+   16 frames in f32, timed from a fresh state after a warm-up run whose
+   steps 4-12 count the host synchronizations; check the launch counts,
+   finiteness,
    stream 0's accuracy and the agreement of two streams with an f64 CPU run
    of the port (the pose within the path's limits, and the per-frame count
-   of features that passed the χ² gate equal on every stream-frame);
-   profile 2 frames;
+   of features that passed the χ² gate equal on every stream-frame; every
+   CPU reference is queued and computed after the last phase, see
+   ``CpuRefs``); profile 2 frames;
 5. drive the plane path the same way (``plane_config``, the committed M-PL
-   scene, its first 32 frames, 64 streams, f32): also the plane states and
+   scene, its first 24 frames, 64 streams, f32): also the plane states and
    constraint updates, every final CP within 0.10 m of a true plane, and the
    per-frame plane counters against the f64 CPU run (24 frames);
 5b. drive the MS-PL path the same way (``ms_pl_config``: SLAM landmarks and
-   planes, D = 147, the M-PL scene, 36 frames): also SLAM inits and
+   planes, D = 147, the M-PL scene, 32 frames): also SLAM inits and
    landmarks on every stream, landmark updates, and the per-frame SLAM and
    plane counters against the f64 CPU run (30 frames, the first SLAM inits
    at frame 20); then 4 streams of MS-PT with anchored landmarks
    (``ANCHORED_MSCKF_INVERSE_DEPTH``, planes off) step by step until
    landmarks have moved to a new anchor clone, its launch counts checked;
 6. drive the vision path, the system's main path (``vision_config``, the
-   bench's vision mode): render the first 48 frames of the committed vision scene
+   bench's vision mode): render the first 36 frames of the committed vision scene
    on the card, add each stream's fixed pixel noise, quantize to the 8-bit
    lattice and stage the ring on the card; ``VioEngine.from_config`` →
    ``FusedVisionDriver(cfg, eng, 64)`` → ``init_frontend`` → ``stage_image``
    → ``step_batch`` per frame → ``flush_stream``. A 12-frame warm-up counts
-   the host synchronizations per step (only the one packed pull), then 48
+   the host synchronizations per step (only the one packed pull), then 36
    frames from a fresh state are timed: launch counts, stream 0's accuracy,
    the host detector's plane labels reaching the step over the 64 streams,
    and streams 0–1 against the port's CPU
@@ -62,8 +64,8 @@ Phases (any failure raises and the exit code is nonzero):
    variant at one stream, D = 156) on an ASL folder that
    ``scripts/make_synth_asl`` writes from the 10 s tabletop scene (frames
    rendered on the card at 752×480, PNGs): the host pipeline with GT init
-   (42 frames, f64), ``--fused`` (16 frames, f64) and ``--no-gt-init --f32``
-   (the dynamic init must succeed, then 16 frames): 21 downdates and no gram
+   (42 frames, f64), ``--fused`` (12 frames, f64) and ``--no-gt-init --f32``
+   (the dynamic init must succeed, then 12 frames): 21 downdates and no gram
    per frame, ATE posyaw below 0.5 m, every output file written, SLAM
    landmarks and a plane in the host path's state, and its first 10 frames
    against the port's CPU run of the same folder (every counter equal, the
@@ -78,7 +80,33 @@ Phases (any failure raises and the exit code is nonzero):
    f64 run (20 frames, every counter equal, the pose within (1e-2 m, 1e-3)),
    and each variant's mean RMSE and NEES within 3 combined standard errors
    of the committed JAX reference (``data/sweep_jax_reference.npz``);
-11. print the ``{"kernels": [...]}`` line, then the card and the device line last.
+12. online calibration (time offset, extrinsics, intrinsics): the
+   configuration of tests/test_torch_calib.py on the 20 s scene that
+   ``build_sim`` makes on the card with a 15 ms camera-IMU offset, 16
+   streams each from its own ``perturb_calibration(cfg, seed=1+b)`` and
+   dt = 0, 60 frames in f32 with the information form: exact launch counts,
+   the 16-stream mean intrinsics error below CAL_INTR_RATIO and |dt error|
+   below CAL_DT_RATIO of their starts, streams 0-1 against the CPU f64 run
+   (12 frames, every counter equal, the pose within (1e-2 m, 1e-3));
+13. the ZUPT in its three formulations (standard, ``integrated_accel``,
+   ``explicit_zero_motion``) through ``manager.step`` on 16 streams of the
+   stationary and rotating IMU windows of tests/test_updaters.py (64
+   samples): accept decisions, clone counts and times as the JAX package
+   gives them and equal to the CPU f64 run's, exact launch counts;
+14. M-PL on the scene ``build_sim`` makes on the card, 16 streams, 24
+   frames, with plane RANSAC (CP planes where the CPU f64 run has them) and
+   with ground-truth injection, each with its launch counts and streams 0-1
+   against the CPU f64 run (12 frames);
+15. ``scripts/run_mc_vision`` through its entry point (the tabletop scene,
+   sparse, 8 seeds, 48 frames per arm, planes ON and OFF): both arms finite,
+   per-seed ATE and the paired statistics, the launch counts; the ON arm's
+   streams 0-1 against the port's CPU run over 12 frames, as the script ran
+   it (u8 wire, ``mm_bf16``: printed) and with the exact ``mm`` sampler on
+   the f32 wire (held), and frame 2's KLT on identical inputs on the card
+   and the CPU under each sampler (printed: where the two runs part);
+   then every CPU reference (``CpuRefs``, after the last timed window) and
+   the comparisons with them;
+16. print the ``{"kernels": [...]}`` line, then the card and the device line last.
 
 Needs a CUDA card: without one it exits with code 2 and prints no result.
 """
@@ -86,9 +114,11 @@ Needs a CUDA card: without one it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import bisect
+import concurrent.futures
 import ctypes
 import hashlib
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -134,7 +164,24 @@ REPLAY_D = 156
 # on the plane variants, the SLAM update (M = D) and the eight SLAM-init
 # candidates (M = 33) on the SLAM variants.
 SWEEP_SEEDS = 20
+# Slice 8 (phases 12-15), at 16 streams: the calibration run (D = 129: 15
+# calibration columns on the 114 of sim_config's layout) launches the classic
+# update's f64 gram and its downdate (M = D); the ZUPT (the in-step
+# configuration of tests/test_updaters.py, D = 114, QR compression: no gram)
+# its 6·(W − 1) = 378-row update, the classic update (M = D) and, in the
+# explicit formulation, a 9-row update; the plane-RANSAC and ground-truth
+# runs the M-PL path's shapes. The vision Monte-Carlo (scripts/run_mc_vision,
+# 8 seeds of the sparse tabletop protocol: 4 plane slots, D = 102) launches
+# the vision path's shapes at its own D on the ON arm and the classic update's
+# on the OFF arm.
+CAL_BATCH = 16
+CAL_D = 129
+MC_D = 102
 F32, F64 = torch.float32, torch.float64
+# The CPU references run after the last phase, when the card's host thread
+# is idle, in WORKERS spawned processes of WORKER_THREADS threads each: the
+# step is host-bound, so a reference beside a timed window would slow it.
+WORKERS, WORKER_THREADS = 8, 1
 # (path, kernel, (B, M, D), dtype) of every launch shape.
 PATH_SHAPES = [
     ("point", "gram_reduce", (BATCH, GRAM_M, 93), F64),
@@ -153,6 +200,13 @@ PATH_SHAPES = [
     *(("sweep", "gram_reduce", (SWEEP_SEEDS, GRAM_M, D), F64) for D in (114, 147)),
     *(("sweep", "kalman_downdate", (SWEEP_SEEDS, M, 114), F32) for M in (114, 115)),
     *(("sweep", "kalman_downdate", (SWEEP_SEEDS, M, 147), F32) for M in (147, 148, 33)),
+    ("calib", "gram_reduce", (CAL_BATCH, GRAM_M, CAL_D), F64),
+    ("calib", "kalman_downdate", (CAL_BATCH, CAL_D, CAL_D), F32),
+    *(("zupt", "kalman_downdate", (CAL_BATCH, M, 114), F32) for M in (378, 114, 9)),
+    *((p, "gram_reduce", (CAL_BATCH, GRAM_M, 114), F64) for p in ("ransac", "gt")),
+    *((p, "kalman_downdate", (CAL_BATCH, M, 114), F32) for p in ("ransac", "gt") for M in (114, 115)),
+    ("mc-vision", "gram_reduce", (8, GRAM_M, MC_D), F64),
+    *(("mc-vision", "kalman_downdate", (8, M, MC_D), F32) for M in (MC_D, MC_D + 1, 3)),
 ]
 PATH_NAMES = tuple(dict.fromkeys(p for p, *_ in PATH_SHAPES))
 
@@ -439,24 +493,24 @@ class PathSpec(NamedTuple):
 # the point and plane filters again, at 20 streams, with their own CPU check.
 PATHS = (
     # Phase 4: the point path on the bench scene (slice 1), cut to its first
-    # 24 frames (its CPU check to 12).
-    PathSpec("point", "slice_config", "SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 1}, 4, 12, 24),
+    # 16 frames (its CPU check to 12).
+    PathSpec("point", "slice_config", "SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 1}, 4, 12, 16),
     # Phase 5: the plane path on the M-PL scene (slice 3), cut to its first
-    # 32 frames (CPU check 24): the downdate closes the classic update, the
+    # 24 frames (CPU check 24): the downdate closes the classic update, the
     # grouped plane update and both delayed-init candidates; the first plane
     # state appears at frame 20. Its sync check covers steps 4-12: the MS-PL
     # path's (below) covers every plane stage with planes in the state.
-    PathSpec("plane", "plane_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 4}, 4, 24, 32),
+    PathSpec("plane", "plane_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 4}, 4, 24, 24),
     # Phase 5b: MS-PL on the same scene (slice 5): the plane path's downdates,
     # the SLAM update and the eight delayed-init candidates; the first SLAM
-    # inits come at frame 20, so its first 36 frames hold 16 frames of
+    # inits come at frame 20, so its first 32 frames hold 12 frames of
     # landmarks, the sync check covers steps 21-29 and the CPU check frames
     # 1-30. It holds
     # the pose limits of every path: with the classic update's Gram formed
     # and factored in f64, the card's f32 run read at most |Δp| 1.842e-4 m and
     # |Δq| 1.670e-5 over the noise draws of seeds 7-12 (8.178e-3 before;
     # PERF.md §6).
-    PathSpec("ms-pl", "ms_pl_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 13}, 21, 30, 36),
+    PathSpec("ms-pl", "ms_pl_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 13}, 21, 30, 32),
 )
 PLANE_COUNTERS = ("n_planes", "n_plane_init", "n_plane_constraints", "n_plane_merges", "n_plane_dropped")
 SLAM_COUNTERS = ("n_slam", "n_slam_init", "n_slam_update")
@@ -500,20 +554,17 @@ def cpu_run(cfg, sim, n_frames: int, dtype=torch.float64):
 
 
 def _cpu_reference(cfg, arrays: dict, n_frames: int) -> dict:
-    """``cpu_run`` in a process of its own (the ladder sweep submits it to a
-    spawned worker while the card runs the next variant): ``arrays`` holds
-    the noisy scene's fields as numpy arrays; returns the outputs as numpy
-    arrays."""
-    from ov_plane_tpu_torch.sim.simulator import SimData
-
-    torch.set_num_threads(2)
-    sim = SimData(**{k: torch.from_numpy(v) if k != "imu_window_start" else v for k, v in arrays.items()})
-    return {k: v.numpy() for k, v in cpu_run(cfg, sim, n_frames)._asdict().items()}
+    """``cpu_run`` in a process of its own (a ``CpuRefs`` worker): ``arrays``
+    holds the noisy scene's fields as numpy arrays; returns the outputs as
+    numpy arrays."""
+    return {k: v.numpy() for k, v in cpu_run(cfg, _from_host(arrays), n_frames)._asdict().items()}
 
 
-def drive_path(spec: PathSpec):
+def drive_path(spec: PathSpec, refs: CpuRefs):
     """Phases 4 and 5: one path of the port at full width, B streams in f32
-    over the scene; returns (n_frames, launches, info)."""
+    over the scene; returns (n_frames, launches, info). Its CPU f64
+    reference is queued on ``refs``; ``info["finish"]()`` holds the card to
+    it."""
     from ov_plane_tpu_torch import convert  # noqa: F401  (package import check)
     from ov_plane_tpu_torch.eval.metrics import rmse_nees
     from ov_plane_tpu_torch.models.manager import run_sequence
@@ -528,6 +579,10 @@ def drive_path(spec: PathSpec):
     window = cfg.tpu.max_imu_per_frame
     print(f"{tag} scene {total + 1} frames, {sim.imu_t.shape[0]} IMU samples, {truth.obs_id.shape[1]} observation "
           f"slots; D={eng.layout.dim}; B={BATCH}; {n_frames} frames stepped; set-up {time.time() - t:.2f} s")
+
+    # The CPU f64 reference of two streams is queued.
+    n_ref = min(spec.ref_frames, n_frames)
+    job = refs.submit(spec.name, _cpu_reference, cfg, _to_host(sim, 2), n_ref)
 
     # Warm-up (library handles, allocator) up to the checked window, then 9
     # steps with host synchronizations counted (warnings from
@@ -591,21 +646,24 @@ def drive_path(spec: PathSpec):
     if eng.use_slam:
         check_slam(tag, state, outs)
 
-    # Reference on a small input: two of the streams through the port on the
-    # CPU in f64 (plain kernel versions), against the card's f32 run.
-    n_ref = min(spec.ref_frames, n_frames)
-    t = time.time()
-    ref = cpu_run(cfg, sim, n_ref)
-    dp = (outs.p[:2, :n_ref].double().cpu() - ref.p).abs().max().item()
-    dq = (outs.q[:2, :n_ref].double().cpu() - ref.q).abs().max().item()
-    print(f"{tag} card f32 vs CPU f64 ({time.time() - t:.1f} s on the CPU), 2 streams x {n_ref} frames: "
-          f"max|dp|={dp:.3e} m max|dq|={dq:.3e}")
-    agree = compare_counters(tag, outs, ref, n_ref, ("n_msckf_used",) + (PLANE_COUNTERS if eng.use_planes else ())
-                             + (SLAM_COUNTERS if eng.use_slam else ()))
-    if min(agree.values()) < 1.0:
-        raise RuntimeError(f"per-frame counters differ from the CPU f64 run's: share of stream-frames equal {agree}")
-    if not (dp < spec.pose_limits[0] and dq < spec.pose_limits[1]):
-        raise RuntimeError(f"the card's run disagrees with the CPU f64 reference (limits {spec.pose_limits})")
+    def finish():
+        """Two of the streams through the port on the CPU in f64 (plain kernel
+        versions, in the worker), against the card's f32 run."""
+        from ov_plane_tpu_torch.models.manager import StepOutput
+
+        ref = StepOutput(**{k: torch.from_numpy(v) for k, v in job.result().items()})
+        dp = (outs.p[:2, :n_ref].double().cpu() - ref.p).abs().max().item()
+        dq = (outs.q[:2, :n_ref].double().cpu() - ref.q).abs().max().item()
+        print(f"{tag} card f32 vs CPU f64, 2 streams x {n_ref} frames: max|dp|={dp:.3e} m max|dq|={dq:.3e}")
+        agree = compare_counters(tag, outs, ref, n_ref, ("n_msckf_used",)
+                                 + (PLANE_COUNTERS if eng.use_planes else ()) + (SLAM_COUNTERS if eng.use_slam else ()))
+        if min(agree.values()) < 1.0:
+            raise RuntimeError(f"{tag} per-frame counters differ from the CPU f64 run's: share of stream-frames "
+                               f"equal {agree}")
+        if not (dp < spec.pose_limits[0] and dq < spec.pose_limits[1]):
+            raise RuntimeError(f"{tag} the card's run disagrees with the CPU f64 reference (limits {spec.pose_limits})")
+
+    info["finish"] = finish
     return n_frames, launches, info
 
 
@@ -741,10 +799,10 @@ def report_profile(tag, prof, ranges, first, n, frame_wall_ms, wall_ms):
     print(f"{tag} events read in {time.time() - t:.1f} s")
 
 
-VISION_FRAMES = 48      # the first 48 of the bench's 80 vision frames (bench.py:116)
+VISION_FRAMES = 36      # the first 36 of the bench's 80 vision frames (bench.py:116)
 VISION_WARM = 12        # warm-up frames, the host synchronizations counted from the third
 VISION_REF = 12         # frames of streams 0-1 against the port's CPU run
-ANCHOR_FRAMES = 44      # its frames: the first inits at frame 20 move anchor some 11 frames later
+ANCHOR_FRAMES = 36      # its frames: the first inits at frame 20 move anchor some 11 frames later
 TABLETOP_LAYERS = dict(texture_cell=0.1, speckle_cells=((0.05, 0.12, 0.30), 0.12))   # tests/test_fused_planes.py
 VISION_PER_FRAME = {"gram_reduce": 1, "kalman_downdate": 12}   # classic 1, plane 1, init 2, merge slots 8
 ANCHOR_PER_FRAME = {"gram_reduce": 1, "kalman_downdate": 10}   # classic 1, SLAM update 1, init candidates 8
@@ -1060,9 +1118,42 @@ def drive_anchored():
     return ANCHOR_FRAMES, launches, dict(stream_frames_per_s=b * ANCHOR_FRAMES / wall, anchor_changes=changes)
 
 
-def drive_tabletop():
+def _drive_fused(drv, st, bank, fev, frames, run, b, on_card):
+    """Frames through ``step_batch`` for the first b streams; returns the
+    per-frame (inits, constraints, planes) [b, T, 3] and the final state."""
+    rows = []
+    for i in range(1, len(frames) + 1):
+        img = frames[i - 1].expand(b, -1, -1).contiguous()
+        st, bank, fev, out = drv.step_batch(st, bank, fev, img if on_card else img.cpu(),
+                                            *_imu_window(run, i, slice(0, b)))
+        rows.append(torch.stack([out.n_plane_init, out.n_plane_constraints, out.n_planes], dim=1).cpu())
+    drv.flush_stream()
+    drv.close()
+    return torch.stack(rows, dim=1), st
+
+
+def _tabletop_cpu_reference(frames, imu, gt_bg0, gt_ba0):
+    """The tabletop phase's chosen streams through the port on the CPU
+    (frontend f32, filter f64) in a ``CpuRefs`` worker: ``frames`` numpy
+    [T, h, w], ``imu`` the streams' host IMU arrays. Returns the counters."""
+    from ov_plane_tpu_torch.models.manager import VioEngine
+    from ov_plane_tpu_torch.sim import simulator
+    from ov_plane_tpu_torch.utils.config import tabletop_config
+
+    cfg = tabletop_config()
+    truth = simulator.load_scene(simulator.TABLETOP_SCENE_PATH, dtype=torch.float64, device="cpu")
+    run = VisionRun(cfg, truth, imu, torch.from_numpy(gt_bg0), torch.from_numpy(gt_ba0), None, "mm", "f32")
+    b = gt_bg0.shape[0]
+    eng = VioEngine.from_config(cfg, device="cpu")
+    cnt, _ = _drive_fused(*vision_driver(run, eng, b, "cpu", torch.float64), [torch.from_numpy(f) for f in frames],
+                          run, b, False)
+    return cnt.numpy()
+
+
+def drive_tabletop(refs: CpuRefs):
     """Phase 6b: the fused path's plane update on the tabletop scene; returns
-    (n_frames, launches, info)."""
+    (n_frames, launches, info), ``info["finish"]()`` holding stream 0 to the
+    CPU reference queued on ``refs``."""
     from ov_plane_tpu_torch.frontend.synthetic import render_frame_textured
     from ov_plane_tpu_torch.models.manager import VioEngine
     from ov_plane_tpu_torch.ops import kernels
@@ -1092,21 +1183,10 @@ def drive_tabletop():
     print(f"{tag} D={eng.layout.dim}; {n_frames} frames rendered on the card in {time.time() - t:.2f} s; "
           f"B={TABLETOP_BATCH}, f32")
 
-    def drive(drv, st, bank, fev, b, on_card):
-        rows = []
-        for i in range(1, n_frames + 1):
-            img = frames[i - 1].expand(b, -1, -1).contiguous()
-            st, bank, fev, out = drv.step_batch(st, bank, fev, img if on_card else img.cpu(),
-                                                *_imu_window(run, i, slice(0, b)))
-            rows.append(torch.stack([out.n_plane_init, out.n_plane_constraints, out.n_planes], dim=1).cpu())
-        drv.flush_stream()
-        drv.close()
-        return torch.stack(rows, dim=1), st                       # [b, T, 3]
-
     drv, st, bank, fev = vision_driver(run, eng, TABLETOP_BATCH, "cuda", torch.float32)
     kernels.reset_launch_counts()
     t = time.time()
-    cnt, st = drive(drv, st, bank, fev, TABLETOP_BATCH, True)
+    cnt, st = _drive_fused(drv, st, bank, fev, frames, run, TABLETOP_BATCH, True)
     wall = time.time() - t
     launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
     n_init, n_constr, n_planes = int(cnt[..., 0].sum()), int(cnt[..., 1].sum()), int(cnt[..., 2].max())
@@ -1125,38 +1205,41 @@ def drive_tabletop():
         raise RuntimeError("the fused path's plane update did not fire on the tabletop scene")
 
     # Stream 0 and the first other stream with a plane in the state through
-    # the port on the CPU (frontend f32, filter f64), same inputs. Stream 0
-    # must agree (its first plane enters the state at frame 42 on both); on
-    # the other, an f32 gate that f64 does not take is printed.
-    t = time.time()
+    # the port on the CPU (frontend f32, filter f64), same inputs, queued.
+    # Stream 0 must agree (its first plane enters the state at frame
+    # 42 on both); on the other, an f32 gate that f64 does not take is printed.
     sel = [0] + [int(b) for b in (cnt[:, :, 2].max(dim=1).values > 0).nonzero()[:, 0] if b > 0][:1]
     imu_t, imu_w, imu_a, cam_t = run.imu
-    sub = run._replace(imu=(imu_t, imu_w[sel], imu_a[sel], cam_t), gt_bg0=run.gt_bg0[sel], gt_ba0=run.gt_ba0[sel])
-    cpu_eng = VioEngine.from_config(cfg, device="cpu")
-    cref, _ = drive(*vision_driver(sub, cpu_eng, len(sel), "cpu", torch.float64), len(sel), False)
-    same = []
-    for j, b in enumerate(sel):
-        card_b, cpu_b = cnt[b], cref[j]
-        first = [int(c[:, 2].nonzero()[0]) + 1 if c[:, 2].any() else None for c in (card_b, cpu_b)]
-        same.append(int((card_b == cpu_b).all(dim=1).sum()))
-        print(f"{tag} stream {b}, card f32 vs CPU f64: first frame with a plane in the state {first[0]} vs "
-              f"{first[1]}; (inits, constraints, planes) equal on {same[-1]} of {n_frames} frames")
-        for f in range(35, n_frames):
-            print(f"{tag}   frame {f + 1}: card {card_b[f].tolist()} CPU {cpu_b[f].tolist()}")
-        if b == 0 and (first[0] is None or first[0] != first[1] or same[-1] < TABLETOP_MIN_EQUAL):
-            raise RuntimeError(f"stream 0's plane counters disagree with the CPU f64 run: first plane at frame "
-                               f"{first[0]} vs {first[1]}, equal on {same[-1]} of {n_frames} frames "
-                               f"(at least {TABLETOP_MIN_EQUAL} needed)")
-    print(f"{tag} CPU reference of streams {sel} in {time.time() - t:.1f} s")
-    info = dict(stream_frames_per_s=TABLETOP_BATCH * n_frames / wall, wall_s=wall, n_frames=n_frames,
-                streams=sel, counters_equal=same)
+    job = refs.submit("tabletop", _tabletop_cpu_reference, torch.stack(frames).cpu().numpy(),
+                      (imu_t, imu_w[sel], imu_a[sel], cam_t), run.gt_bg0[sel].cpu().numpy(),
+                      run.gt_ba0[sel].cpu().numpy())
+    info = dict(stream_frames_per_s=TABLETOP_BATCH * n_frames / wall, wall_s=wall, n_frames=n_frames, streams=sel)
+
+    def finish():
+        cref = torch.from_numpy(job.result())
+        same = []
+        for j, b in enumerate(sel):
+            card_b, cpu_b = cnt[b], cref[j]
+            first = [int(c[:, 2].nonzero()[0]) + 1 if c[:, 2].any() else None for c in (card_b, cpu_b)]
+            same.append(int((card_b == cpu_b).all(dim=1).sum()))
+            print(f"{tag} stream {b}, card f32 vs CPU f64: first frame with a plane in the state {first[0]} vs "
+                  f"{first[1]}; (inits, constraints, planes) equal on {same[-1]} of {n_frames} frames")
+            for f in range(35, n_frames):
+                print(f"{tag}   frame {f + 1}: card {card_b[f].tolist()} CPU {cpu_b[f].tolist()}")
+            if b == 0 and (first[0] is None or first[0] != first[1] or same[-1] < TABLETOP_MIN_EQUAL):
+                raise RuntimeError(f"stream 0's plane counters disagree with the CPU f64 run: first plane at frame "
+                                   f"{first[0]} vs {first[1]}, equal on {same[-1]} of {n_frames} frames "
+                                   f"(at least {TABLETOP_MIN_EQUAL} needed)")
+        info["counters_equal"] = same
+
+    info["finish"] = finish
     return n_frames, launches, info
 
 
 REPLAY_FRAMES = 56      # of the 10 s tabletop scene, written as an ASL folder (the dynamic init takes frame 36)
 REPLAY_HOST_FRAMES = 42  # replayed after the GT init at frame 1 (SLAM and plane inits after the 2 s delay)
-REPLAY_FUSED_FRAMES = 16
-REPLAY_DYN_FRAMES = 16  # replayed after the dynamic init
+REPLAY_FUSED_FRAMES = 12
+REPLAY_DYN_FRAMES = 12  # replayed after the dynamic init (run_euroc reports the ATE past 10 frames)
 REPLAY_REF = 10         # frames of the host path held against the port's CPU run
 REPLAY_PER_FRAME = {"gram_reduce": 0, "kalman_downdate": 21}
 # Card f64 against CPU f64 over the first REPLAY_REF frames of the host
@@ -1283,7 +1366,7 @@ SWEEP_SE = 3.0             # the port's mean within 3 combined standard errors o
 SWEEP_METRICS = ("rmse_pos", "rmse_ori_deg", "nees_pos", "nees_ori")
 
 
-def drive_sweep():
+def drive_sweep(refs: CpuRefs):
     """Phase 10: the algorithm ladder (``scripts/run_sweep``) on the card.
     Builds the M-PL configuration's 30 s scene with the port's ``build_sim``
     and holds it to the committed one; then runs every variant (M-PT, MS-PT,
@@ -1295,19 +1378,17 @@ def drive_sweep():
     same noisy instances (every counter equal, the pose within (1e-2 m,
     1e-3)), and each variant's mean RMSE and NEES within SWEEP_SE combined
     standard errors of JAX's over its 20 seeds. Returns (frames, launches,
-    info) summed over the variants."""
-    import concurrent.futures
+    info) summed over the variants, ``info["finish"]()`` holding the card to
+    the CPU references queued on ``refs``."""
     import contextlib
     import io
     import math
-    import multiprocessing
     import tempfile
 
     import numpy as np
 
     from ov_plane_tpu_torch.eval.metrics import rmse_nees
     from ov_plane_tpu_torch.models.manager import StepOutput
-    from ov_plane_tpu_torch import convert
     from ov_plane_tpu_torch.ops import kernels
     from ov_plane_tpu_torch.scripts import ov_eval, run_sweep
     from ov_plane_tpu_torch.sim import simulator
@@ -1350,11 +1431,7 @@ def drive_sweep():
     truths, runs, info = {}, {}, {"build_sim_s": build_s, "scene_max_abs_err": worst, "variants": {}}
     launches_total = {"gram_reduce": 0, "kalman_downdate": 0}
     frames_total, stream_frames, wall_total = 0, 0, 0.0
-    # Each variant's CPU f64 reference runs in a spawned worker while the card
-    # runs the next variant (two CPU threads beside the card's host thread).
-    spawn = multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory(prefix="ovp_sweep_") as out, \
-            concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+    with tempfile.TemporaryDirectory(prefix="ovp_sweep_") as out:
         cpu_refs = {}
         for name, (max_slam, use_planes) in run_sweep.VARIANTS.items():
             vcfg = run_sweep.make_config(duration, "", max_slam, use_planes)
@@ -1398,10 +1475,8 @@ def drive_sweep():
             run_sweep.write_variant(out, name, "room_scan", run, truth=not runs)
             runs[name] = run
 
-            # Streams 0-1 of the same noisy instances through the port on the CPU in f64.
-            host = {k: (v[:2] if k in convert.NOISY_FIELDS else v).cpu().numpy() if isinstance(v, torch.Tensor)
-                    else v for k, v in sim._asdict().items()}
-            cpu_refs[name] = (time.time(), pool.submit(_cpu_reference, vcfg, host, SWEEP_REF_FRAMES))
+            # Streams 0-1 of the same noisy instances through the port on the CPU in f64, queued.
+            cpu_refs[name] = refs.submit(f"sweep {name}", _cpu_reference, vcfg, _to_host(sim, 2), SWEEP_REF_FRAMES)
 
             # Statistics against the committed JAX reference.
             m = rmse_nees(outs.q.double(), outs.p.double(), outs.cov_diag_imu[..., 0:3].double(),
@@ -1430,24 +1505,6 @@ def drive_sweep():
             stream_frames += seeds * F
             wall_total += wall
 
-        # 6. The card's f32 runs against the CPU f64 references.
-        for name, (max_slam, use_planes) in run_sweep.VARIANTS.items():
-            t0, future = cpu_refs[name]
-            cpu = StepOutput(**{k: torch.from_numpy(v) for k, v in future.result().items()})
-            outs = runs[name].outs
-            dp = (outs.p[:2, :SWEEP_REF_FRAMES].double().cpu() - cpu.p).abs().max().item()
-            dq = (outs.q[:2, :SWEEP_REF_FRAMES].double().cpu() - cpu.q).abs().max().item()
-            print(f"{tag} {name}: card f32 vs CPU f64 (ready {time.time() - t0:.1f} s after its submission), "
-                  f"2 streams x {SWEEP_REF_FRAMES} frames: max|dp|={dp:.3e} m max|dq|={dq:.3e}")
-            agree = compare_counters(f"{tag} {name}", outs, cpu, SWEEP_REF_FRAMES,
-                                     ("n_msckf_used", "n_bank", "n_clones")
-                                     + (PLANE_COUNTERS if use_planes else ()) + (SLAM_COUNTERS if max_slam else ()))
-            if min(agree.values()) < 1.0:
-                raise RuntimeError(f"{name}: per-frame counters differ from the CPU f64 run's: {agree}")
-            if not (dp < 1e-2 and dq < 1e-3):
-                raise RuntimeError(f"{name}: the card's run disagrees with the CPU f64 run (limits (1e-2 m, 1e-3))")
-            info["variants"][name]["card_vs_cpu"] = (dp, dq)
-
         # 3. Every TUM file and the ov_eval table.
         files = [Path(out) / "truths" / "room_scan.txt"] + [
             Path(out) / "algorithms" / v / "room_scan" / f"estimate_{k}.txt" for v in runs for k in range(seeds)]
@@ -1465,7 +1522,661 @@ def drive_sweep():
         if sorted(rows) != sorted(runs) or any("±" not in c for c in rows.values()):
             raise RuntimeError(f"the ov_eval table lacks a variant or a value: {rows}")
     info.update(stream_frames_per_s=stream_frames / wall_total, ov_eval=rows)
+
+    def finish():
+        """The card's f32 runs against the CPU f64 references."""
+        for name, (max_slam, use_planes) in run_sweep.VARIANTS.items():
+            cpu = StepOutput(**{k: torch.from_numpy(v) for k, v in cpu_refs[name].result().items()})
+            outs = runs[name].outs
+            dp = (outs.p[:2, :SWEEP_REF_FRAMES].double().cpu() - cpu.p).abs().max().item()
+            dq = (outs.q[:2, :SWEEP_REF_FRAMES].double().cpu() - cpu.q).abs().max().item()
+            print(f"{tag} {name}: card f32 vs CPU f64, 2 streams x {SWEEP_REF_FRAMES} frames: max|dp|={dp:.3e} m "
+                  f"max|dq|={dq:.3e}")
+            agree = compare_counters(f"{tag} {name}", outs, cpu, SWEEP_REF_FRAMES,
+                                     ("n_msckf_used", "n_bank", "n_clones")
+                                     + (PLANE_COUNTERS if use_planes else ()) + (SLAM_COUNTERS if max_slam else ()))
+            if min(agree.values()) < 1.0:
+                raise RuntimeError(f"{name}: per-frame counters differ from the CPU f64 run's: {agree}")
+            if not (dp < 1e-2 and dq < 1e-3):
+                raise RuntimeError(f"{name}: the card's run disagrees with the CPU f64 run (limits (1e-2 m, 1e-3))")
+            info["variants"][name]["card_vs_cpu"] = (dp, dq)
+
+    info["finish"] = finish
     return frames_total, launches_total, info
+
+
+# --------------------------------------------------------------------------- slice 8: calibration, ZUPT,
+# plane RANSAC, ground truths and the vision Monte-Carlo (phases 12-15)
+
+# The calibration run's depth and its intrinsics bound: test_calib.py's 0.6x
+# holds for its one perturbation after the whole 187-frame scene; over the
+# perturbations of seeds 1-16 the JAX package's 16-stream mean is 0.719 of
+# its start at frame 60 and 0.695 at frame 120, the port's the same to three
+# decimals (tests/test_torch_calib.py run as a script), so the card's mean is
+# held to 0.8x at 60 frames (|dt| to 0.5x; 0.016 there).
+CAL_FRAMES = 60
+CAL_INTR_RATIO, CAL_DT_RATIO = 0.8, 0.5
+MC_SEEDS, MC_FRAMES = 8, 48   # the vision Monte-Carlo's seeds and frames per arm
+CAL_DT = 0.015          # the scene's camera-IMU offset (tests/test_calib_dt.py)
+CAL_REF = 12            # frames of streams 0-1 against the port's CPU f64 run
+CAL_PER_FRAME = {"gram_reduce": 1, "kalman_downdate": 1}      # the classic update
+ZUPT_FRAMES = 3
+ZUPT_FORMS = ("standard", "integrated_accel", "explicit_zero_motion")
+# The ZUPT's own downdate (6·(W−1) rows), the classic update's (QR-compressed,
+# M = D), and the explicit formulation's 9-row update.
+ZUPT_PER_FRAME = {"standard": {"gram_reduce": 0, "kalman_downdate": 2},
+                  "integrated_accel": {"gram_reduce": 0, "kalman_downdate": 2},
+                  "explicit_zero_motion": {"gram_reduce": 0, "kalman_downdate": 3}}
+RANSAC_FRAMES = 24      # the M-PL scene's first plane enters the state at frame 20
+MC_ARGS = ["--scene", "tabletop", "--densities", "sparse", "--seeds", str(MC_SEEDS), "--max-frames",
+           str(MC_FRAMES)]
+MC_REF = 12             # frames of the ON arm's streams 0-1 against the port's CPU run
+MC_PER_FRAME = {"ON": {"gram_reduce": 1, "kalman_downdate": 12}, "OFF": {"gram_reduce": 1, "kalman_downdate": 1}}
+
+
+def calib_config(info: bool = True):
+    """tests/test_torch_calib.py's configuration (tests/test_calib.py:17-30
+    with all three calibration blocks on), with the information form."""
+    from ov_plane_tpu_torch.utils.config import sim_config
+
+    cfg = sim_config()
+    cfg.sim.traj_duration = 20.0
+    cfg.state.max_slam_features = 0
+    cfg.state.use_plane_constraint = False
+    cfg.state.use_plane_slam_feats = False
+    cfg.state.do_calib_camera_pose = True
+    cfg.state.do_calib_camera_intrinsics = True
+    cfg.state.do_calib_camera_timeoffset = True
+    cfg.num_pts = 50
+    cfg.num_pts_plane = 0
+    cfg.tpu.max_features = 160
+    cfg.tpu.max_obs_per_frame = 80
+    cfg.tpu.max_msckf_update = 40
+    cfg.tpu.use_info_compression = info
+    return cfg
+
+
+def _to_host(sim, streams: int) -> dict:
+    """A noisy SimData as numpy arrays, its noisy fields cut to the first streams."""
+    from ov_plane_tpu_torch import convert
+
+    return {k: ((v[:streams] if k in convert.NOISY_FIELDS else v).cpu().numpy() if isinstance(v, torch.Tensor)
+                else v) for k, v in sim._asdict().items()}
+
+
+def _from_host(arrays: dict, dtype=torch.float64):
+    from ov_plane_tpu_torch.sim.simulator import SimData
+
+    return SimData(**{k: (torch.from_numpy(v).to(dtype) if v.dtype.kind == "f" else torch.from_numpy(v))
+                      if k != "imu_window_start" and v is not None else v for k, v in arrays.items()})
+
+
+def _calib_state(eng, cfg_est, sim, calib, b, device, dtype):
+    """A fresh state of b streams whose calibration starts at ``calib``
+    (cam_zeta [B, 8], calib_cam [B, 7]) and dt = 0."""
+    st, bank = _fresh(eng, cfg_est, sim._replace(cam_t_imu=sim.cam_t), b, device, dtype)
+    zeta, ext = (torch.as_tensor(x[:b], dtype=dtype, device=device) for x in calib)
+    return st.replace(cam_zeta=zeta, calib_cam=ext), bank
+
+
+def _calib_errors(st, cfg):
+    """Per stream: the intrinsics error ‖(fx, fy, cx, cy) − truth‖ and |dt − truth|."""
+    zt = torch.as_tensor(cfg.cam_intrinsics[:4], dtype=torch.float64)
+    return (torch.linalg.vector_norm(st.cam_zeta[:, :4].double().cpu() - zt, dim=1),
+            (st.calib_dt.double().cpu() - CAL_DT).abs())
+
+
+def _calib_cpu_reference(cfg, cfg_est, arrays: dict, n_frames: int, calib) -> dict:
+    """Streams of the calibration scene (numpy ``arrays``) through the port
+    on the CPU in f64, frame by frame from their perturbed calibrations: the
+    outputs and the per-frame calibration errors. Runs in a ``CpuRefs`` worker."""
+    from ov_plane_tpu_torch.models.manager import VioEngine, run_sequence
+
+    sim = _from_host(arrays)
+    eng = VioEngine.from_config(cfg_est, device="cpu")
+    st, bk = _calib_state(eng, cfg_est, sim, calib, sim.imu_w.shape[0], "cpu", torch.float64)
+    outs, errs = [], []
+    for i in range(1, n_frames + 1):
+        st, bk, out = run_sequence(eng, st, bk, sim, imu_window=cfg_est.tpu.max_imu_per_frame, n_frames=1, start=i)
+        outs.append(out)
+        errs.append(torch.stack(_calib_errors(st, cfg), dim=1))
+    res = {k: torch.cat([getattr(o, k) for o in outs], dim=1).numpy() for k in outs[0]._fields}
+    res["calib_err"] = torch.stack(errs, dim=1).numpy()          # [b, T, 2]
+    return res
+
+
+def drive_calib(refs: CpuRefs):
+    """Phase 12: online calibration (time offset, extrinsics, intrinsics) on
+    CAL_BATCH streams in f32 with the information form; returns (n_frames,
+    launches, info), ``info["finish"]()`` holding the card to the CPU
+    reference queued on ``refs``."""
+    import copy
+
+    import numpy as np
+
+    from ov_plane_tpu_torch.models.manager import StepOutput, VioEngine, run_sequence
+    from ov_plane_tpu_torch.ops import kernels
+    from ov_plane_tpu_torch.sim import simulator
+
+    tag = "[calib]"
+    cfg = calib_config()
+    cfg.calib_camimu_dt = CAL_DT
+    t = time.time()
+    truth = simulator.build_sim(cfg, max_obs=cfg.tpu.max_obs_per_frame, device="cuda")
+    sim = simulator.apply_noise(truth, simulator.noise_params(cfg), CAL_BATCH,
+                                torch.Generator(device="cuda").manual_seed(SEED + 5))
+    sim = sim._replace(**{k: v.float() for k, v in sim._asdict().items()
+                          if isinstance(v, torch.Tensor) and v.is_floating_point()})
+    cfg_est = copy.deepcopy(cfg)
+    cfg_est.calib_camimu_dt = 0.0
+    perturbed = [simulator.perturb_calibration(cfg, seed=1 + b) for b in range(CAL_BATCH)]
+    calib = (np.stack([z for _, z, _ in perturbed]), np.stack([e for _, _, e in perturbed]))
+    eng = VioEngine.from_config(cfg_est, device="cuda")
+    n_frames = CAL_FRAMES
+    print(f"{tag} scene {truth.cam_t.shape[0]} frames built on the card with a {1e3 * CAL_DT:.0f} ms offset; "
+          f"D={eng.layout.dim}; B={CAL_BATCH}; f32; {n_frames} frames; set-up {time.time() - t:.2f} s")
+    job = refs.submit("calib", _calib_cpu_reference, cfg, cfg_est, _to_host(sim, 2), n_frames, calib)
+
+    st, bank = _calib_state(eng, cfg_est, sim, calib, CAL_BATCH, "cuda", torch.float32)
+    e0, d0 = _calib_errors(st, cfg)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.time()
+    st, bank, outs = run_sequence(eng, st, bank, sim, imu_window=cfg.tpu.max_imu_per_frame, n_frames=n_frames)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
+    print(f"{tag} {CAL_BATCH}x{n_frames} stream-frames in {wall:.3f} s: {CAL_BATCH * n_frames / wall:.2f} "
+          f"stream-frames/s; launches {launches}")
+    for k, n in launches.items():
+        if n != CAL_PER_FRAME[k] * n_frames:
+            raise RuntimeError(f"{k} launched {n} times over {n_frames} frames, not {CAL_PER_FRAME[k]} per frame")
+    if not (torch.isfinite(st.cov).all() and torch.isfinite(st.imu).all() and torch.isfinite(outs.p).all()):
+        raise RuntimeError("non-finite calibration state")
+    e1, d1 = _calib_errors(st, cfg)
+    ri, rd = float(e1.mean() / e0.mean()), float(d1.mean() / d0.mean())
+    print(f"{tag} mean over {CAL_BATCH} streams: intrinsics error {e0.mean():.4f} -> {e1.mean():.4f} px "
+          f"({ri:.3f} of its start, limit {CAL_INTR_RATIO}), |dt error| {1e3 * d0.mean():.3f} -> "
+          f"{1e3 * d1.mean():.3f} ms ({rd:.3f}, limit {CAL_DT_RATIO}); extrinsic position error at the end "
+          f"{(st.calib_cam[:, 4:7].double().cpu() - torch.tensor(cfg.cam_extrinsics[4:7])).norm(dim=1).max():.4f} m "
+          f"at most")
+    if not (ri < CAL_INTR_RATIO and rd < CAL_DT_RATIO):
+        raise RuntimeError(f"the calibration errors did not fall below {CAL_INTR_RATIO}x (intrinsics) and "
+                           f"{CAL_DT_RATIO}x (dt) their starts")
+
+    info = dict(stream_frames_per_s=CAL_BATCH * n_frames / wall, wall_s=wall, n_frames=n_frames,
+                intrinsics_ratio=ri, dt_ratio=rd)
+
+    def finish():
+        ref = job.result()
+        cpu = StepOutput(**{k: torch.from_numpy(v) for k, v in ref.items() if k != "calib_err"})
+        err = ref["calib_err"]                                       # [2, T, 2]
+        met = (err[0, :, 0] < 0.6 * float(e0[0])) & (err[0, :, 1] < CAL_DT_RATIO * CAL_DT)
+        first = int(np.argmax(met)) + 1 if met.any() else None
+        print(f"{tag} the CPU f64 run of stream 0 meets test_calib.py's 0.6x and {CAL_DT_RATIO}x first at frame "
+              f"{first} of {n_frames}; its ratios at the end {err[0, -1, 0] / float(e0[0]):.3f} and "
+              f"{err[0, -1, 1] / CAL_DT:.3f}")
+        info["stream0_first_frame"] = first
+        info["card_vs_cpu"] = _hold_to_cpu(tag, outs, cpu, CAL_REF, ("n_msckf_used", "n_bank", "n_clones"))
+
+    info["finish"] = finish
+    return n_frames, launches, info
+
+
+def _hold_to_cpu(tag, outs, cpu, n_ref, names, limits=(1e-2, 1e-3)):
+    """Streams 0-1 of the card's f32 run against the CPU f64 run: every
+    counter equal on every stream-frame, the pose within ``limits``."""
+    cpu = cpu._replace(**{k: v[:, :n_ref] for k, v in cpu._asdict().items()})
+    dp = (outs.p[:2, :n_ref].double().cpu() - cpu.p).abs().max().item()
+    dq = (outs.q[:2, :n_ref].double().cpu() - cpu.q).abs().max().item()
+    print(f"{tag} card f32 vs CPU f64, 2 streams x {n_ref} frames: max|dp|={dp:.3e} m max|dq|={dq:.3e}")
+    agree = compare_counters(tag, outs, cpu, n_ref, names)
+    if min(agree.values()) < 1.0:
+        raise RuntimeError(f"{tag} per-frame counters differ from the CPU f64 run's: {agree}")
+    if not (dp < limits[0] and dq < limits[1]):
+        raise RuntimeError(f"{tag} the card's run disagrees with the CPU f64 run (limits {limits})")
+    return dp, dq
+
+
+def zupt_config(form: str):
+    """tests/test_updaters.py's in-step configuration (a ZUPT on every frame,
+    the disparity override off) at the default IMU window (W = 64)."""
+    from ov_plane_tpu_torch.utils.config import sim_config
+
+    cfg = sim_config()
+    cfg.try_zupt = True
+    cfg.zupt_options.chi2_multipler = 1.0
+    cfg.zupt_max_disparity = 0.0
+    cfg.zupt_integrated_accel = form == "integrated_accel"
+    if form == "explicit_zero_motion":
+        cfg.zupt_only_at_beginning = False
+        cfg.zupt_explicit_zero_motion = True
+    cfg.state.max_slam_features = 0
+    cfg.state.use_plane_constraint = False
+    cfg.state.use_plane_slam_feats = False
+    cfg.state.do_calib_camera_pose = False
+    cfg.state.do_calib_camera_intrinsics = False
+    cfg.state.do_calib_camera_timeoffset = False
+    cfg.tpu.max_features = 32
+    cfg.tpu.max_obs_per_frame = 16
+    cfg.tpu.max_msckf_update = 8
+    return cfg
+
+
+def _zupt_frames(cfg, form, rng, q_now, k):
+    """Frame k's IMU windows of the ZUPT streams: the first half stationary
+    (measuring R_GtoI·g, a little noise), the second rotating at 0.5 rad/s;
+    on the explicit formulation's first frame every stream rotates."""
+    import numpy as np
+
+    from ov_plane_tpu_torch.ops.quat import quat_2_rot
+
+    B, W, g = CAL_BATCH, cfg.tpu.max_imu_per_frame, cfg.gravity_mag
+    ts = np.tile(np.linspace(k * 0.1, (k + 1) * 0.1, W), (B, 1))
+    a_body = (quat_2_rot(torch.as_tensor(q_now)) @ torch.tensor([0.0, 0.0, g], dtype=torch.float64)).numpy()
+    w = np.tile([0.5, 0.0, 0.0], (B, W, 1))
+    a = np.repeat(a_body[:, None], W, axis=1)
+    still = np.arange(B) < B // 2
+    if not (form == "explicit_zero_motion" and k == 0):
+        w[still] = 1e-5 * rng.normal(size=(int(still.sum()), W, 3))
+        a[still] += 1e-4 * rng.normal(size=(int(still.sum()), W, 3))
+    return ts, w, a
+
+
+def _zupt_run(form: str, device, dtype, inputs=None):
+    """ZUPT_FRAMES frames of the ZUPT streams through ``manager.step``.
+    Returns (per-frame (t, num_clones, has_moved) [T, B, 3], the inputs,
+    the final state, launches)."""
+    import numpy as np
+
+    from ov_plane_tpu_torch.models.feature_bank import FeatureBank
+    from ov_plane_tpu_torch.models.manager import FrameData, VioEngine, init_state_with_gt, step
+    from ov_plane_tpu_torch.ops import kernels
+
+    cfg = zupt_config(form)
+    eng = VioEngine.from_config(cfg, device=device)
+    B = CAL_BATCH
+    z = torch.zeros(B, 3, dtype=torch.float64)
+    st = init_state_with_gt(eng, cfg, t0=torch.zeros(B), q0=torch.tensor([[0.0, 0.0, 0.0, 1.0]]).expand(B, 4),
+                            p0=z, v0=z, bg0=z, ba0=z, dtype=dtype, device=device)
+    bank = FeatureBank.create(cfg.tpu.max_features, eng.layout.max_clones, B, dtype, device)
+    O = cfg.tpu.max_obs_per_frame
+    rng = np.random.default_rng(11)
+    made, rows = [], []
+    q_now = np.tile([0.0, 0.0, 0.0, 1.0], (B, 1))
+    kernels.reset_launch_counts()
+    for k in range(ZUPT_FRAMES):
+        ts, w, a = inputs[k] if inputs is not None else _zupt_frames(cfg, form, rng, q_now, k)
+        made.append((ts, w, a))
+        as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+        frame = FrameData(imu_t=as_t(ts), imu_w=as_t(w), imu_a=as_t(a), t_new=as_t(np.full(B, (k + 1) * 0.1)),
+                          obs_id=torch.full((B, O), -1, dtype=torch.int32, device=device),
+                          obs_uv=torch.zeros(B, O, 2, dtype=dtype, device=device),
+                          obs_plane=torch.full((B, O), -1, dtype=torch.int32, device=device))
+        st, bank, _ = step(eng, st, bank, frame)
+        rows.append(torch.stack([st.t.double(), st.num_clones.double(), st.has_moved.double()], dim=1).cpu())
+        q_now = st.imu[:, 0:4].double().cpu().numpy()
+    launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
+    return torch.stack(rows).numpy(), made, st, launches
+
+
+def drive_zupt():
+    """Phase 13: each ZUPT formulation on CAL_BATCH streams (half stationary,
+    half rotating) through ``manager.step`` in f32; returns (n_frames,
+    launches, info)."""
+    import numpy as np
+
+    tag = "[zupt]"
+    launches_total = {"gram_reduce": 0, "kalman_downdate": 0}
+    info = {"forms": {}}
+    B, wall_total = CAL_BATCH, 0.0
+    for form in ZUPT_FORMS:
+        _zupt_run(form, "cuda", torch.float32)            # warm-up
+        torch.cuda.synchronize()
+        t = time.time()
+        card, inputs, st, launches = _zupt_run(form, "cuda", torch.float32)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        cpu, _, cst, _ = _zupt_run(form, "cpu", torch.float64, inputs)
+        # What the JAX package gives (tests/test_updaters.py): a stationary
+        # stream's ZUPT is accepted (time advances, no clone); a rotating one
+        # is rejected and the frame clones. The explicit formulation clones on
+        # its first (rotating) frame, then holds one clone.
+        still = np.arange(B) < B // 2
+        clones = np.where(still, 0, np.arange(1, ZUPT_FRAMES + 1)[:, None])
+        if form == "explicit_zero_motion":
+            clones = np.where(still, 1, np.arange(1, ZUPT_FRAMES + 1)[:, None])
+        moved = np.broadcast_to(~still if form != "explicit_zero_motion" else np.ones(B, bool), (ZUPT_FRAMES, B))
+        t_ok = np.allclose(card[..., 0], np.arange(1, ZUPT_FRAMES + 1)[:, None] * 0.1, atol=1e-6)
+        accept = np.diff(np.concatenate([np.zeros((1, B)), card[..., 1]]), axis=0) == 0
+        print(f"{tag} {form}: {B}x{ZUPT_FRAMES} stream-frames in {wall:.3f} s; launches {launches}; accepted per "
+              f"frame {accept.sum(axis=1).tolist()} of {B}; clones at the end {card[-1, :, 1].astype(int).tolist()}")
+        if not (t_ok and np.array_equal(card[..., 1], clones) and np.array_equal(card[..., 2] > 0, moved)):
+            raise RuntimeError(f"{form}: time, clone counts or has_moved are not what the JAX package gives")
+        if not (np.array_equal(card[..., 1:], cpu[..., 1:]) and np.allclose(card[..., 0], cpu[..., 0], atol=1e-6)):
+            raise RuntimeError(f"{form}: the card's ZUPT decisions differ from the CPU f64 run's")
+        dv = (st.imu.double().cpu() - cst.imu).abs().max().item()
+        print(f"{tag} {form}: accept flags, clone counts and times equal to the CPU f64 run's; max|Δimu| {dv:.3e}")
+        if not (torch.isfinite(st.cov).all() and dv < 1e-3):
+            raise RuntimeError(f"{form}: non-finite state or the card's state departs from the CPU f64 run's")
+        for k, n in launches.items():
+            if n != ZUPT_PER_FRAME[form][k] * ZUPT_FRAMES:
+                raise RuntimeError(f"{form}: {k} launched {n} times over {ZUPT_FRAMES} frames, "
+                                   f"not {ZUPT_PER_FRAME[form][k]} per frame")
+            launches_total[k] += n
+        info["forms"][form] = dict(wall_s=wall, launches=launches, imu_err=dv)
+        wall_total += wall
+    info.update(stream_frames_per_s=B * ZUPT_FRAMES * len(ZUPT_FORMS) / wall_total, wall_s=wall_total)
+    return ZUPT_FRAMES * len(ZUPT_FORMS), launches_total, info
+
+
+def drive_ransac_gt(refs: CpuRefs):
+    """Phase 14: M-PL (``plane_config``) on CAL_BATCH streams of the scene that
+    ``build_sim`` makes on the card, 24 frames each in f32: with plane RANSAC,
+    then with ground-truth injection. Returns {"ransac": ..., "gt": ...},
+    each (n_frames, launches, info) with ``info["finish"]()`` holding the
+    card to its CPU reference queued on ``refs``."""
+    from ov_plane_tpu_torch.models.manager import VioEngine, run_sequence
+    from ov_plane_tpu_torch.ops import kernels
+    from ov_plane_tpu_torch.sim import simulator
+    from ov_plane_tpu_torch.utils.config import plane_config
+
+    cfg0 = plane_config()
+    truth = simulator.build_sim(cfg0, max_obs=cfg0.tpu.max_obs_per_frame, device="cuda")
+    sim = simulator.apply_noise(truth, simulator.noise_params(cfg0), CAL_BATCH,
+                                torch.Generator(device="cuda").manual_seed(SEED + 6))
+    sim = sim._replace(**{k: v.float() for k, v in sim._asdict().items()
+                          if isinstance(v, torch.Tensor) and v.is_floating_point()})
+    results = {}
+    for name, field in (("ransac", "use_plane_ransac"), ("gt", "use_groundtruths")):
+        tag = f"[{name}]"
+        cfg = plane_config()
+        setattr(cfg.state, field, True)
+        eng = VioEngine.from_config(cfg, device="cuda")
+        n_ref = RANSAC_FRAMES if name == "ransac" else CAL_REF
+        job = refs.submit(name, _cpu_reference, cfg, _to_host(sim, 2), n_ref)
+        st, bank = _fresh(eng, cfg, sim, CAL_BATCH, "cuda", torch.float32)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.time()
+        st, bank, outs = run_sequence(eng, st, bank, sim, imu_window=cfg.tpu.max_imu_per_frame,
+                                      n_frames=RANSAC_FRAMES)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
+        per = PATHS[1].per_frame
+        print(f"{tag} D={eng.layout.dim}; {CAL_BATCH}x{RANSAC_FRAMES} stream-frames in {wall:.3f} s: "
+              f"{CAL_BATCH * RANSAC_FRAMES / wall:.2f} stream-frames/s; launches {launches}; streams with a CP plane "
+              f"at frame {RANSAC_FRAMES} {int((outs.n_planes[:, -1] > 0).sum())} of {CAL_BATCH}; constraint "
+              f"updates {int(outs.n_plane_constraints.sum())}")
+        for k, n in launches.items():
+            if n != per[k] * RANSAC_FRAMES:
+                raise RuntimeError(f"{tag} {k} launched {n} times over {RANSAC_FRAMES} frames, not {per[k]} per frame")
+        if not (torch.isfinite(st.cov).all() and torch.isfinite(outs.p).all()):
+            raise RuntimeError(f"{tag} non-finite state")
+        info = dict(stream_frames_per_s=CAL_BATCH * RANSAC_FRAMES / wall, wall_s=wall, n_frames=RANSAC_FRAMES)
+        info["finish"] = _ransac_gt_finish(tag, name, job, outs, info)
+        results[name] = (RANSAC_FRAMES, launches, info)
+    return results
+
+
+def _ransac_gt_finish(tag, name, job, outs, info):
+    """Phase 14's comparison of one run with its CPU f64 reference."""
+    from ov_plane_tpu_torch.models.manager import StepOutput
+
+    def finish():
+        cpu = StepOutput(**{k: torch.from_numpy(v) for k, v in job.result().items()})
+        info["card_vs_cpu"] = _hold_to_cpu(tag, outs, cpu, CAL_REF,
+                                           ("n_msckf_used", "n_bank", "n_clones") + PLANE_COUNTERS)
+        if name == "ransac":
+            cpu_planes = cpu.n_planes[:, -1] > 0
+            card_planes = outs.n_planes[:2, -1].cpu() > 0
+            print(f"{tag} CP planes in the state at frame {RANSAC_FRAMES} on streams 0-1: card "
+                  f"{card_planes.tolist()}, CPU f64 {cpu_planes.tolist()}")
+            if not cpu_planes.any() or (cpu_planes & ~card_planes).any():
+                raise RuntimeError(f"{tag} no CP plane on a stream where the CPU f64 run has one")
+
+    return finish
+
+
+def _mc_arm(cfg, sim, images, dtype, device, sampler: str, wire: str) -> dict:
+    """The planes-ON arm of ``run_mc_vision.run_variant`` over given noisy
+    images [n, b, H, W] (numpy) of the first b streams of ``sim``, with the
+    driver's sampler and wire as given ('auto' resolves against the first
+    image, as the script's driver does). Returns per frame the track ids and valid flags [n, b,
+    cap], p [n, b, 3] and q [n, b, 4] as numpy, and the driver's KLT options
+    and tracker state after the last frame."""
+    import copy
+
+    from ov_plane_tpu_torch.models.manager import VioEngine
+
+    cfg = copy.deepcopy(cfg)
+    cfg.state.use_plane_constraint = True
+    cfg.state.use_plane_slam_feats = True
+    b = images.shape[1]
+    host = lambda x: x.detach().double().cpu().numpy()  # noqa: E731
+    run = VisionRun(cfg, sim, (host(sim.imu_t), host(sim.imu_w[:b]), host(sim.imu_a[:b]), host(sim.cam_t_imu)),
+                    sim.gt_bg_cam[:b, 0], sim.gt_ba_cam[:b, 0], None, sampler, wire)
+    drv, st, bank, fev = vision_driver(run, VioEngine.from_config(cfg, device=device), b, device, dtype)
+    rows = {"ids": [], "valid": [], "p": [], "q": []}
+    for i in range(1, len(images) + 1):
+        st, bank, fev, out = drv.step_batch(st, bank, fev, drv.stage_image(images[i - 1]), *_imu_window(run, i))
+        for k, v in (("ids", fev.ids), ("valid", fev.valid), ("p", out.p), ("q", out.q)):
+            rows[k].append(v)
+    drv.flush_stream()
+    drv.close()
+    res = {k: torch.stack(v).cpu().numpy() for k, v in rows.items()}
+    res["p"], res["q"] = res["p"].astype("float64"), res["q"].astype("float64")
+    return dict(res, klt=drv.vopts.klt, fev=fev)
+
+
+def _mc_cpu_reference(arrays: dict, images, sampler: str, wire: str) -> dict:
+    """Streams 0-1 of the vision Monte-Carlo's ON arm through the port on the
+    CPU (frontend f32, filter f64), with the card's IMU draws, the script's
+    image noise and the driver's sampler and wire as given; runs in a
+    ``CpuRefs`` worker."""
+    from ov_plane_tpu_torch.scripts import run_mc_vision as mc
+
+    cfg, _ = mc.scene_config("tabletop", False)
+    res = _mc_arm(cfg, _from_host(arrays), images, torch.float64, "cpu", sampler, wire)
+    return {k: v for k, v in res.items() if k in ("ids", "valid", "p", "q")}
+
+
+def _mc_agreement(tag, what, card, ref, n_ref):
+    """Track ids and valid flags and the pose of streams 0-1 over n_ref frames,
+    card against the CPU reference (dicts or runs of run_mc_vision)."""
+    import numpy as np
+
+    card = card._asdict() if hasattr(card, "_asdict") else card
+    same = (card["ids"][:n_ref, :2] == ref["ids"]) & (card["valid"][:n_ref, :2] == ref["valid"])
+    dp = float(np.abs(card["p"][:n_ref, :2] - ref["p"]).max())
+    dq = float(np.abs(card["q"][:n_ref, :2] - ref["q"]).max())
+    first = int(np.argmin(same.reshape(n_ref, -1).all(axis=1))) + 1 if not same.all() else None
+    print(f"{tag} {what}, card f32 vs CPU (frontend f32, filter f64), 2 streams x {n_ref} frames: ids and valid "
+          f"equal on {int(same.sum())} of {same.size} slot-frames ({100 * same.mean():.2f}%; first frame with a "
+          f"difference {first}); max|dp|={dp:.3e} m max|dq|={dq:.3e}")
+    return float(same.mean()), dp, dq
+
+
+def _klt_trace(tag, cfg, sim, images):
+    """Where the script's own arm (u8 wire, ``mm_bf16``) departs from its CPU
+    run: frame 2's KLT stage on identical inputs on the card and on the CPU,
+    under each sampler. The tracker state after frame 1 (its points and
+    mask) comes from the CPU run, the images are the script's frames 1-2 of
+    streams 0-1 (the scene's histogram method is NONE), the flow prior is
+    zero; prints the pyramids' and the
+    tracked points' largest difference and the track status flips."""
+    from ov_plane_tpu_torch.frontend import klt as fklt
+
+    one = _mc_arm(cfg, _from_host(_to_host(sim, 2)), images[:1, :2], torch.float64, "cpu", "mm", "f32")
+    opts, fev = one["klt"], one["fev"]
+    mask = fev.valid & fev.has_prev[:, None]
+    res = {}
+    for sampler in ("mm", "mm_bf16"):
+        for dev in ("cuda", "cpu"):
+            pyr = [fklt.prepare_pyramid(fklt.build_pyramid(torch.from_numpy(images[i, :2]).to(dev), opts.levels),
+                                        opts.window) for i in (0, 1)]
+            p1, ok = fklt.track(pyr[0], pyr[1], fev.uv.to(dev), mask.to(dev), opts._replace(sampler=sampler))
+            res[sampler, dev] = (pyr[1].padded, p1.cpu(), ok.cpu())
+        (pyr_g, p_g, ok_g), (pyr_c, p_c, ok_c) = res[sampler, "cuda"], res[sampler, "cpu"]
+        dpyr = max(float((a.cpu() - b).abs().max()) for a, b in zip(pyr_g, pyr_c))
+        both = ok_g & ok_c
+        dp1 = float((p_g - p_c).norm(dim=-1)[both].max()) if both.any() else 0.0
+        print(f"{tag} frame-2 KLT on identical inputs, {sampler}: pyramids max|Δ| {dpyr:.3e}; of "
+              f"{int(mask.sum())} tracked points, status differs on {int((ok_g != ok_c).sum())} (card ok "
+              f"{int(ok_g.sum())}, CPU ok {int(ok_c.sum())}); max|Δp1| {dp1:.3e} px where both are ok")
+
+
+def drive_mc_vision(refs: CpuRefs):
+    """Phase 15: ``scripts/run_mc_vision`` through its entry point on the card
+    (the tabletop scene, sparse, MC_SEEDS seeds, MC_FRAMES frames, planes ON
+    and OFF); returns (n_frames, launches, info), ``info["finish"]()``
+    holding the ON arm to the CPU references queued on ``refs``."""
+    import numpy as np
+
+    from ov_plane_tpu_torch.ops import kernels
+    from ov_plane_tpu_torch.scripts import run_mc_vision as mc
+    from ov_plane_tpu_torch.sim import simulator
+
+    tag = "[mc-vision]"
+    runs = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.time()
+    mc.main(MC_ARGS, runs=runs)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
+    on, off = runs[("sparse", "ON")], runs[("sparse", "OFF")]
+    n = on.p.shape[0]
+    for arm, run in (("ON", on), ("OFF", off)):
+        print(f"{tag} {arm}: {MC_SEEDS}x{n} stream-frames in {run.wall_s:.3f} s: {MC_SEEDS * n / run.wall_s:.2f} "
+              f"stream-frames/s; constraint updates {run.n_constraints}; per-seed ATE (m, deg) "
+              + " ".join(f"({a:.4f}, {o:.3f})" for a, o in run.ates))
+        if not (np.isfinite(run.p).all() and np.isfinite(run.q).all() and np.isfinite(run.ates).all()):
+            raise RuntimeError(f"{tag} the {arm} arm is not finite")
+    expect = {k: n * (MC_PER_FRAME["ON"][k] + MC_PER_FRAME["OFF"][k]) for k in launches}
+    print(f"{tag} the script took {wall:.1f} s (scene, renders and both arms); launches {launches}")
+    if launches != expect:
+        raise RuntimeError(f"{tag} launches {launches}, not {expect} (ON {MC_PER_FRAME['ON']}, "
+                           f"OFF {MC_PER_FRAME['OFF']} per frame)")
+
+    # The same inputs as the script's ON arm, remade here: its scene, its
+    # IMU draws and its image noise for the first MC_REF frames.
+    cfg, render = mc.scene_config("tabletop", False)
+    truth = simulator.build_sim(cfg, max_obs=cfg.tpu.max_obs_per_frame, device="cuda")
+    sim = mc.noisy_streams(cfg, truth, MC_SEEDS, 17)
+    frames = mc.render_frames(cfg, truth, render, MC_REF, "cuda")
+    images = np.stack(list(mc.noisy_images(frames, MC_SEEDS, 17)))           # [MC_REF, MC_SEEDS, H, W]
+    # The script's own arm (u8 wire, the mm_bf16 sampler its frames resolve
+    # to) is printed against its CPU run, and frame 2's KLT on identical
+    # inputs locates where they part. The card's numerics are held on the
+    # same arm with the exact mm sampler and the f32 wire.
+    exact = _mc_arm(cfg, sim, images, torch.float32, "cuda", "mm", "f32")
+    jobs = {w: refs.submit(f"mc-vision {w[0]}", _mc_cpu_reference, _to_host(sim, 2), images[:, :2], *w)
+            for w in (("auto", "auto"), ("mm", "f32"))}
+    _klt_trace(tag, cfg, sim, images)
+    info = dict(stream_frames_per_s=2 * MC_SEEDS * n / (on.wall_s + off.wall_s), wall_s=wall, n_frames=n,
+                on_rate=MC_SEEDS * n / on.wall_s, off_rate=MC_SEEDS * n / off.wall_s)
+
+    def finish():
+        _mc_agreement(tag, "ON arm as the script ran it (u8, mm_bf16)", on, jobs[("auto", "auto")].result(), MC_REF)
+        frac, dp, dq = _mc_agreement(tag, "ON arm, exact sampler (f32 wire, mm)", exact,
+                                     jobs[("mm", "f32")].result(), MC_REF)
+        if not (frac >= 0.99 and dp <= 1e-2 and dq <= 1e-3):
+            raise RuntimeError(f"{tag} the card's ON arm disagrees with the CPU reference")
+        info.update(ids_equal=frac, card_vs_cpu=(dp, dq))
+
+    info["finish"] = finish
+    return n, launches, info
+
+
+def _reference_job(fn, args):
+    """One CPU reference in a spawned worker: (seconds, fn(*args))."""
+    torch.set_num_threads(WORKER_THREADS)
+    t = time.time()
+    value = fn(*args)
+    return time.time() - t, value
+
+
+class CpuRefs:
+    """The CPU references of every phase. ``submit`` queues a job and returns
+    its handle; ``run`` computes every queued job in WORKERS spawned
+    single-thread processes after the last phase, while the card's host
+    thread only waits, so no timed window shares the host with a reference.
+    A handle's ``result()`` is its job's value once ``run`` has returned."""
+
+    class Handle:
+        def __init__(self, name):
+            self.name, self.seconds, self._value = name, None, None
+
+        def result(self):
+            if self.seconds is None:
+                raise RuntimeError(f"the CPU reference {self.name!r} is read before it ran")
+            return self._value
+
+    def __init__(self):
+        self.jobs = []
+
+    def submit(self, name: str, fn, *args) -> "CpuRefs.Handle":
+        handle = CpuRefs.Handle(name)
+        self.jobs.append((handle, fn, args))
+        return handle
+
+    def run(self):
+        t = time.time()
+        pool = concurrent.futures.ProcessPoolExecutor(WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        try:
+            futures = [(h, pool.submit(_reference_job, fn, args)) for h, fn, args in self.jobs]
+            for h, future in futures:
+                h.seconds, h._value = future.result()
+        except BaseException:
+            pool.shutdown(wait=False, cancel_futures=True)
+            raise
+        pool.shutdown()
+        print(f"[refs] {len(self.jobs)} CPU references in {time.time() - t:.1f} s on {WORKERS} workers: "
+              + ", ".join(f"{h.name} {h.seconds:.1f} s" for h, _, _ in self.jobs))
+
+
+def drive_phases() -> dict:
+    """Phases 4-15, then their CPU references (``CpuRefs``) and the
+    comparisons with them; returns each path's (n_frames, launches, info)."""
+    refs, results, pending = CpuRefs(), {}, []
+
+    def phase(name, fn, *args):
+        t = time.time()
+        res = fn(*args)
+        print(f"[{name}] phase took {time.time() - t:.1f} s")
+        return res
+
+    def path(spec):
+        res = drive_path(spec, refs)
+        profile_frames(spec, res[2])
+        return res
+
+    def vision():
+        res = drive_vision()
+        profile_vision(res[2])
+        return res
+
+    for spec in PATHS:
+        results[spec.name] = phase(spec.name, path, spec)
+    results["anchored"] = phase("anchored", drive_anchored)
+    results["vision"] = phase("vision", vision)
+    results["tabletop"] = phase("tabletop", drive_tabletop, refs)
+    results["replay"] = phase("replay", drive_replay)
+    results["sweep"] = phase("sweep", drive_sweep, refs)
+    results["calib"] = phase("calib", drive_calib, refs)
+    results["zupt"] = phase("zupt", drive_zupt)
+    results.update(phase("ransac-gt", drive_ransac_gt, refs))
+    results["mc-vision"] = phase("mc-vision", drive_mc_vision, refs)
+    refs.run()
+    t = time.time()
+    for name, (_, _, info) in results.items():
+        if "finish" in info:
+            info.pop("finish")()
+    print(f"[refs] the comparisons with the CPU references took {time.time() - t:.1f} s")
+    return results
 
 
 def main() -> int:
@@ -1497,29 +2208,7 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     rows = time_kernels(kernels, check_kernels(kernels), earlier_kernel)
-    results = {}
-    for spec in PATHS:
-        t = time.time()
-        n_frames, launches, info = drive_path(spec)
-        profile_frames(spec, info)
-        results[spec.name] = (n_frames, launches, info)
-        print(f"[{spec.name}] phase took {time.time() - t:.1f} s")
-    t = time.time()
-    results["anchored"] = drive_anchored()
-    print(f"[anchored] phase took {time.time() - t:.1f} s")
-    t = time.time()
-    results["vision"] = drive_vision()
-    profile_vision(results["vision"][2])
-    print(f"[vision] phase took {time.time() - t:.1f} s")
-    t = time.time()
-    results["tabletop"] = drive_tabletop()
-    print(f"[tabletop] phase took {time.time() - t:.1f} s")
-    t = time.time()
-    results["replay"] = drive_replay()
-    print(f"[replay] phase took {time.time() - t:.1f} s")
-    t = time.time()
-    results["sweep"] = drive_sweep()
-    print(f"[sweep] phase took {time.time() - t:.1f} s")
+    results = drive_phases()
 
     meta = {
         "gram_reduce": ("ov_plane_tpu_torch/csrc/gram_reduce.cu",

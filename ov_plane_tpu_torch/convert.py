@@ -5,11 +5,14 @@ arrays. Handed over as mappings of numpy arrays (field name -> array), these
 functions build the port's [B, ...] containers: per-stream mappings are
 stacked along a new leading stream dimension. A state carries its SLAM
 landmark slots (``slam_p``, ``slam_p_fej``, ``slam_id``, ``slam_active``,
-``slam_anchor_slot``) and plane slots (``plane_cp``, ``plane_cp_fej``,
-``plane_id``, ``plane_active``), a bank its features' plane ids and SLAM
-marks (``is_slam``, ``slam_slot``); simulator data carries the
-per-observation plane ids (``obs_plane``) and, for a plane scene, the true
-plane CPs; :func:`sim_from_arrays` takes one draw or a vmapped batch of
+``slam_anchor_slot``), plane slots (``plane_cp``, ``plane_cp_fej``,
+``plane_id``, ``plane_active``) and calibration (``calib_dt``, ``last_dt``,
+``calib_cam``, ``cam_zeta`` and the covariance over the layout's calibration
+columns), a bank its features' plane ids, SLAM marks (``is_slam``,
+``slam_slot``) and truth columns (``gt_p``, ``gt_cp``); simulator data
+carries the per-observation plane ids (``obs_plane``), each observation's
+truth (``obs_gt_p``, ``obs_gt_cp``) and, for a plane scene, the true plane
+CPs; :func:`sim_from_arrays` takes one draw or a vmapped batch of
 draws, noisy or as the noiseless scene with its map. A fused frontend's
 tracker state (:func:`frontend_from_arrays`) carries its prepared pyramid,
 so both packages can start one step from the same state. Every function makes its tensors on the card unless the caller
@@ -107,7 +110,8 @@ def _sim(scene, noisy, dtype, device) -> SimData:
     return SimData(
         imu_t=truth.imu_t, cam_t=truth.cam_t, cam_t_imu=truth.cam_t_imu, obs_id=truth.obs_id,
         obs_plane=truth.obs_plane, imu_window_start=truth.imu_window_start,
-        gt_q=truth.gt_q, gt_p=truth.gt_p, gt_v=truth.gt_v, **t,
+        gt_q=truth.gt_q, gt_p=truth.gt_p, gt_v=truth.gt_v, obs_gt_p=truth.obs_gt_p,
+        obs_gt_cp=truth.obs_gt_cp, **t,
     )
 
 

@@ -7,7 +7,7 @@ slots when full, and KNN is a dense masked distance computation with a
 stable sort (ties go to the lower index, as ``jax.lax.top_k`` breaks them).
 The voxel hash is int64 arithmetic and wraps on overflow, as in the JAX
 package. The JAX module's ``sharded_knn`` (an ``all_gather`` across a
-device mesh) waits for the port's mesh (ROADMAP queue 1, item 4).
+device mesh) waits for the port's mesh (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations

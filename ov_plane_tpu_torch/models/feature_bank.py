@@ -26,6 +26,9 @@ class FeatureBank(TensorTree):
     planeid: torch.Tensor   # [B, F] int32 (-1 none)
     is_slam: torch.Tensor   # [B, F] bool
     slam_slot: torch.Tensor  # [B, F] int32
+    # Simulator truth of each feature (use_groundtruths; zeros otherwise).
+    gt_p: torch.Tensor      # [B, F, 3] true feature position
+    gt_cp: torch.Tensor     # [B, F, 3] true CP of the feature's plane
 
     @classmethod
     def create(cls, max_features: int, max_clones: int, batch: int, dtype=torch.float64,
@@ -41,6 +44,8 @@ class FeatureBank(TensorTree):
             planeid=torch.full((B, F), -1, **i32),
             is_slam=torch.zeros(B, F, dtype=torch.bool, device=device),
             slam_slot=torch.full((B, F), -1, **i32),
+            gt_p=torch.zeros(B, F, 3, dtype=dtype, device=device),
+            gt_cp=torch.zeros(B, F, 3, dtype=dtype, device=device),
         )
 
     @property
@@ -92,13 +97,16 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, index)
 
 
-def ingest(bank: FeatureBank, ids, uv, uvn, plane, slot) -> FeatureBank:
+def ingest(bank: FeatureBank, ids, uv, uvn, plane, slot, gt_p=None, gt_cp=None) -> FeatureBank:
     """Insert one frame's observations at clone slot ``slot`` [B].
 
     ids [B, O] int (-1 padding); uv/uvn [B, O, 2]; plane [B, O] int. Existing
     ids update in place (refreshing the plane association); new ids claim
     free rows in order; overflow observations are dropped. Stale
-    observations at the recycled slot are cleared first.
+    observations at the recycled slot are cleared first. The optional
+    per-observation truth gt_p / gt_cp [B, O, 3] is stored with the rows
+    they feed; without it the truth columns keep their zeros (the JAX
+    package writes zeros there, the same values).
     """
     K = bank.mask.shape[-1]
     valid = ids >= 0
@@ -131,7 +139,9 @@ def ingest(bank: FeatureBank, ids, uv, uvn, plane, slot) -> FeatureBank:
     uvn_col = torch.where(hitc, _take(uvn, src), 0.0)
     uv_all = torch.where(at_slot[..., None], uv_col[:, :, None, :], bank.uv)
     uvn_all = torch.where(at_slot[..., None], uvn_col[:, :, None, :], bank.uvn)
-    return bank.replace(fid=fid, uv=uv_all, uvn=uvn_all, mask=mask, planeid=planeid)
+    truth = {name: torch.where(hitc, _take(obs, src).to(bank.gt_p.dtype), getattr(bank, name))
+             for name, obs in (("gt_p", gt_p), ("gt_cp", gt_cp)) if obs is not None}
+    return bank.replace(fid=fid, uv=uv_all, uvn=uvn_all, mask=mask, planeid=planeid, **truth)
 
 
 def free_rows(bank: FeatureBank, rows_mask: torch.Tensor) -> FeatureBank:

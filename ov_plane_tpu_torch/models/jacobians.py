@@ -1,7 +1,7 @@
 """Per-feature stacked measurement Jacobians (full-width).
 
-Counterpart of ``ov_plane_tpu/models/jacobians.py`` without calibration
-columns. One feature gives a fixed-shape system over the K clone slots:
+Counterpart of ``ov_plane_tpu/models/jacobians.py``. One feature gives a
+fixed-shape system over the K clone slots:
 
     rows [0 : 2K)    whitened reprojection residuals (2 per clone slot)
     rows [2K : 3K)   whitened point-on-plane residuals (1 per observation,
@@ -12,7 +12,10 @@ d/d p_FinG in columns 0:3 and d/d cp in columns 3:6 for a plane that is not
 in the state (a plane in the state takes its three state columns in H_x).
 FEJ points follow the reference: clone FEJ poses and the feature / plane FEJ
 values in the Jacobians, current estimates in the residuals and in the
-distortion Jacobian. With a landmark representation other than GLOBAL_3D
+distortion Jacobian. With online calibration on
+(``JacobianOptions.do_calib_camera_pose`` / ``_intrinsics``) the
+reprojection rows also fill the extrinsic columns [δθ, δp] and the eight
+intrinsic columns of the layout. With a landmark representation other than GLOBAL_3D
 (``JacobianOptions.rep``) the feature columns are that representation's
 error state, and anchored representations add the coupling to their anchor
 clone's columns (UpdaterHelper.cpp:195-444).
@@ -34,6 +37,8 @@ from ov_plane_tpu_torch.state.layout import StateLayout
 class JacobianOptions(NamedTuple):
     cam_model: int = cams.RADTAN
     do_fej: bool = True
+    do_calib_camera_pose: bool = False
+    do_calib_camera_intrinsics: bool = False
     # Landmark representation of the feature error state (ops/representations;
     # the 1-dof ANCHORED_INVERSE_DEPTH_SINGLE does not fit the 3-column H_f).
     rep: int = reps.GLOBAL_3D
@@ -117,7 +122,8 @@ def feature_jacobian_full(lay: StateLayout, opts: JacobianOptions, clones: Clone
         p_FinG = anc.point_to_global(safe_anchor_point(anc.point_to_anchor(p_FinG))[0])
         fej_frame = anc_fej if opts.do_fej else anc
         p_FinG_fej = fej_frame.point_to_global(safe_anchor_point(fej_frame.point_to_anchor(p_FinG_fej))[0])
-        rj = reps.rep_jacobians(opts.rep, p_FinG, p_FinG_fej, anc, anc_fej, fej=opts.do_fej)
+        rj = reps.rep_jacobians(opts.rep, p_FinG, p_FinG_fej, anc, anc_fej, fej=opts.do_fej,
+                                calib_extrinsic=opts.do_calib_camera_pose)
         # FEJ overwrite (UpdaterHelper.cpp:376-385): the projection is
         # linearized at the representation's re-anchored FEJ point.
         p_FinG_fej = rj.p_FinG
@@ -133,7 +139,7 @@ def feature_jacobian_full(lay: StateLayout, opts: JacobianOptions, clones: Clone
     z = p_FinCi[..., 2]
     z = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
     uv_norm = p_FinCi[..., :2] / z[..., None]
-    uv_dist, dz_dzn, _ = cams.distort_jacobians(uv_norm, zeta, opts.cam_model)
+    uv_dist, dz_dzn, dz_dzeta = cams.distort_jacobians(uv_norm, zeta, opts.cam_model)
     r = white_px * (uv - uv_dist)                               # [B, M, K, 2]
 
     if opts.do_fej:
@@ -157,6 +163,10 @@ def feature_jacobian_full(lay: StateLayout, opts: JacobianOptions, clones: Clone
     H_clone = white_px * (dz_dpfc @ dpfc_dclone) * mf           # [B, M, K, 2, 6]
     H_feat = white_px * dz_dpfg * mf                            # [B, M, K, 2, 3]
     r = r * mf[..., 0]
+    if opts.do_calib_camera_pose:
+        # d z / d(extrinsic [δθ, δp]) = dz_dpfc [⌊p_FinC − p_IinC⌋ | I].
+        eye3 = torch.eye(3, dtype=dtype, device=dev).expand(p_FinCi_j.shape + (3,))
+        H_cal = white_px * (dz_dpfc @ torch.cat([skew(p_FinCi_j - p_IinC), eye3], dim=-1)) * mf
 
     eyeK = torch.eye(K, dtype=dtype, device=dev)
     Hc_bd = torch.einsum("bmkac,kl->bmkalc", H_clone, eyeK).reshape(B, M, 2 * K, 6 * K)
@@ -173,7 +183,14 @@ def feature_jacobian_full(lay: StateLayout, opts: JacobianOptions, clones: Clone
             in_cols = (j >= col0[..., None]) & (j < col0[..., None] + 6)
             spread = Ha_rows.gather(-1, k_of[:, :, None, :].expand(B, M, 2 * K, D))
             H_x[:, :, :2 * K] = H_x[:, :, :2 * K] + torch.where(in_cols[:, :, None, :], spread, 0.0)
+            if opts.do_calib_camera_pose:
+                H_cal = H_cal + H_feat @ rj.H_calib[:, :, None]
         H_feat = H_feat @ rj.H_f[:, :, None]
+    if opts.do_calib_camera_pose:
+        H_x[:, :, :2 * K, lay.cam_pose_idx:lay.cam_pose_idx + 6] = H_cal.reshape(B, M, 2 * K, 6)
+    if opts.do_calib_camera_intrinsics:
+        H_zeta = white_px * dz_dzeta * mf                                    # [B, M, K, 2, 8]
+        H_x[:, :, :2 * K, lay.cam_intr_idx:lay.cam_intr_idx + 8] = H_zeta.reshape(B, M, 2 * K, 8)
     H_f = torch.zeros(B, M, 3 * K, 6, dtype=dtype, device=dev)
     H_f[:, :, :2 * K, 0:3] = H_feat.reshape(B, M, 2 * K, 3)
     res = torch.zeros(B, M, 3 * K, dtype=dtype, device=dev)

@@ -1,15 +1,20 @@
 """VIO engine of B streams: the per-frame filter step and sequence replay.
 
-Counterpart of ``ov_plane_tpu/models/manager.py`` for the MSCKF path with
-SLAM landmarks and CP planes (ZUPT, ArUco, ground-truth injection and
-calibration come with later slices of the port and raise here). One frame is
+Counterpart of ``ov_plane_tpu/models/manager.py``: the MSCKF path with SLAM
+landmarks, CP planes (with or without plane RANSAC), online camera
+calibration (time offset, extrinsics, intrinsics), ZUPT in its three
+formulations and ground-truth injection (ArUco landmarks and sharded
+compression raise here). One frame is
 
-    propagate + clone → undistort + ingest → triage (MSCKF selection, SLAM
+    [ZUPT attempt] → propagate + clone → [explicit zero-motion ZUPT] →
+    undistort + ingest → triage (MSCKF selection, SLAM
     promotion) → [marginalize lost landmarks] → [plane merges, unseen-plane
     marginalization, delayed plane init → grouped plane MSCKF update → NaN
     firewall] → MSCKF update (point-on-plane rows for planes in the state)
     → [SLAM update → SLAM delayed init] → [re-anchor the landmarks anchored
     at the oldest clone] → free consumed tracks → marginalize the oldest clone
+    → [per stream, the ZUPT result with the pre-frame bank where it was
+    accepted]
 
 over a leading stream dimension B. The step has no host synchronization:
 every per-stream decision is a ``torch.where`` select, and per-stream slot
@@ -36,6 +41,7 @@ from ov_plane_tpu_torch.models.plane_init import (
     plane_delayed_init,
 )
 from ov_plane_tpu_torch.models.plane_msckf import PlaneMsckfOptions, msckf_plane_update
+from ov_plane_tpu_torch.models.zupt import ZuptOptions, try_zupt, zupt_explicit_update
 from ov_plane_tpu_torch.models.slam import (
     SlamOptions,
     change_anchors,
@@ -55,9 +61,9 @@ from ov_plane_tpu_torch.utils.torchenv import resolve_device
 
 
 # Profiler ranges of the step's stages (torch.profiler.record_function), in order.
-STAGES = ("step.propagate_and_clone", "step.ingest", "step.triage", "step.slam_marginalize", "step.plane_init",
-          "step.plane_msckf", "step.msckf_update", "step.slam_update", "step.slam_init", "step.slam_anchor",
-          "step.marginalize")
+STAGES = ("step.zupt", "step.propagate_and_clone", "step.ingest", "step.triage", "step.slam_marginalize",
+          "step.plane_init", "step.plane_msckf", "step.msckf_update", "step.slam_update", "step.slam_init",
+          "step.slam_anchor", "step.marginalize")
 
 
 class FrameData(NamedTuple):
@@ -74,6 +80,9 @@ class FrameData(NamedTuple):
     # merge_into[q]" (VioManager.cpp:516-533); None = no merges.
     merge_from: torch.Tensor | None = None  # [B, Q] int (-1 pad)
     merge_into: torch.Tensor | None = None  # [B, Q] int
+    # Each observation's simulator truth (use_groundtruths); None = zeros.
+    obs_gt_p: torch.Tensor | None = None    # [B, O, 3]
+    obs_gt_cp: torch.Tensor | None = None   # [B, O, 3]
 
 
 class StepOutput(NamedTuple):
@@ -125,6 +134,9 @@ class VioEngine:
     sigma_plane_merge: float
     plane_merge_chi2: float
     plane_merge_deg_max: float
+    try_zupt: bool
+    zupt_opts: ZuptOptions
+    use_groundtruths: bool
     device: torch.device
 
     @property
@@ -143,13 +155,8 @@ class VioEngine:
                                       "3-column feature and landmark layout (as in the JAX package); "
                                       "use a 3-dof representation")
         later = {
-            "plane RANSAC (use_plane_ransac)": st.use_plane_ransac,
-            "ZUPT (try_zupt)": cfg.try_zupt,
             "ArUco landmarks (use_aruco)": cfg.use_aruco,
-            "ground-truth injection (use_groundtruths)": st.use_groundtruths,
             "sharded compression (tpu.shard_axis)": bool(cfg.tpu.shard_axis),
-            "online calibration (do_calib_camera_*)": (
-                st.do_calib_camera_pose or st.do_calib_camera_intrinsics or st.do_calib_camera_timeoffset),
         }
         for what, on in later.items():
             if on:
@@ -158,7 +165,9 @@ class VioEngine:
         lay = StateLayout(
             max_clones=st.max_clone_size + 1,  # +1: transient slot between clone and marginalize
             max_slam=max(st.max_slam_features, 1), max_planes=cfg.tpu.max_planes,
-            calib_dt=False, calib_pose=False, calib_intr=False,
+            # A disabled calibration block has no error-state columns.
+            calib_dt=st.do_calib_camera_timeoffset, calib_pose=st.do_calib_camera_pose,
+            calib_intr=st.do_calib_camera_intrinsics,
         )
         tri = TriangulationOptions(
             min_dist=cfg.featinit.min_dist, max_dist=cfg.featinit.max_dist,
@@ -166,7 +175,9 @@ class VioEngine:
             max_runs=cfg.featinit.max_runs,
         )
         cam_model = cams.RADTAN if cfg.cam_model == "radtan" else cams.EQUI
-        jac = JacobianOptions(cam_model=cam_model, do_fej=st.do_fej)
+        jac = JacobianOptions(cam_model=cam_model, do_fej=st.do_fej,
+                              do_calib_camera_pose=st.do_calib_camera_pose,
+                              do_calib_camera_intrinsics=st.do_calib_camera_intrinsics)
         po = PlaneInitOptions(
             jac=jac, tri=tri,
             refine=PlaneRefineOptions(
@@ -179,12 +190,14 @@ class VioEngine:
             const_init_multi=st.const_init_multi, const_init_chi2=st.const_init_chi2,
             plane_init_min_feat=st.plane_init_min_feat, plane_init_max_cond=st.plane_init_max_cond,
             max_msckf_plane=st.max_msckf_plane, use_refine_plane_feat=st.use_refine_plane_feat,
-            use_info_compression=cfg.tpu.use_info_compression, sigma_c_adaptive=cfg.tpu.sigma_c_adaptive,
+            use_ransac=st.use_plane_ransac, use_info_compression=cfg.tpu.use_info_compression,
+            sigma_c_adaptive=cfg.tpu.sigma_c_adaptive,
         )
         return cls(
             layout=lay,
             prop_opts=PropagatorOptions(use_rk4=st.use_rk4_integration, imu_avg=st.imu_avg,
-                                        do_fej=st.do_fej),
+                                        do_fej=st.do_fej,
+                                        do_calib_camera_timeoffset=st.do_calib_camera_timeoffset),
             msckf_opts=MsckfOptions(
                 jac=jac._replace(rep=rep_msckf), tri=tri,
                 sigma_px=cfg.msckf_options.sigma_pix,
@@ -220,6 +233,17 @@ class VioEngine:
             use_planes=st.use_plane_constraint and st.use_plane_slam_feats,
             sigma_plane_merge=st.sigma_plane_merge, plane_merge_chi2=st.plane_merge_chi2,
             plane_merge_deg_max=st.plane_merge_deg_max,
+            try_zupt=cfg.try_zupt,
+            zupt_opts=ZuptOptions(
+                chi2_multipler=max(cfg.zupt_options.chi2_multipler, 1.0),
+                noise_multiplier=cfg.zupt_noise_multiplier, max_velocity=cfg.zupt_max_velocity,
+                max_disparity=cfg.zupt_max_disparity, only_at_beginning=cfg.zupt_only_at_beginning,
+                integrated_accel=cfg.zupt_integrated_accel, explicit_zero_motion=cfg.zupt_explicit_zero_motion,
+                sigma_w2=cfg.imu_noises.sigma_w_2, sigma_a2=cfg.imu_noises.sigma_a_2,
+                sigma_wb2=cfg.imu_noises.sigma_wb_2, sigma_ab2=cfg.imu_noises.sigma_ab_2,
+                do_fej=st.do_fej, gravity_mag=cfg.gravity_mag,
+            ),
+            use_groundtruths=st.use_groundtruths,
             device=resolve_device(device),
         )
 
@@ -227,7 +251,8 @@ class VioEngine:
 def init_state_with_gt(eng: VioEngine, cfg: VioConfig, t0, q0, p0, v0, bg0, ba0,
                        dtype=torch.float64, device="cuda") -> VioState:
     """Ground-truth initialization of B streams (VioManager::initialize_with_gt):
-    exact mean, fixed diagonal prior. t0 [B], q0 [B, 4], p0/v0/bg0/ba0 [B, 3]."""
+    exact mean, fixed diagonal prior, and the calibration priors of the
+    blocks that are on (State.cpp:86-99). t0 [B], q0 [B, 4], p0/v0/bg0/ba0 [B, 3]."""
     dev = resolve_device(device)
     as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)  # noqa: E731
     t0 = as_t(t0)
@@ -238,6 +263,18 @@ def init_state_with_gt(eng: VioEngine, cfg: VioConfig, t0, q0, p0, v0, bg0, ba0,
                      dtype=dtype, device=dev)
     cov = st.cov.clone()
     cov[:, :15, :15] = torch.diag(d)
+    lay = eng.layout
+    eye = torch.eye(4, dtype=dtype, device=dev)
+    if lay.calib_dt:
+        cov[:, lay.dt_idx, lay.dt_idx] = 0.01**2
+    if lay.calib_pose:
+        i = lay.cam_pose_idx
+        cov[:, i:i + 3, i:i + 3] = 0.005**2 * eye[:3, :3]
+        cov[:, i + 3:i + 6, i + 3:i + 6] = 0.01**2 * eye[:3, :3]
+    if lay.calib_intr:
+        i = lay.cam_intr_idx
+        cov[:, i:i + 4, i:i + 4] = eye
+        cov[:, i + 4:i + 8, i + 4:i + 8] = 0.005**2 * eye
     return st.replace(
         t=t0.clone(), startup_t=t0.clone(), imu=imu, imu_fej=imu.clone(), cov=cov,
         calib_cam=as_t(cfg.cam_extrinsics).expand(B, 7).clone(),
@@ -296,19 +333,55 @@ def _imu_constants(eng: VioEngine, dtype: torch.dtype, device: torch.device):
     return noises, torch.tensor([0.0, 0.0, eng.gravity_mag], dtype=dtype, device=device)
 
 
+def zupt_disparity(state: VioState, bank: fb.FeatureBank, obs_id, obs_uv):
+    """Mean pixel disparity [B] between this frame's observations and the
+    newest clone's over the tracks seen in both, and their count [B]
+    (non-finite pixels are left out, as ingest drops them)."""
+    K = bank.mask.shape[-1]
+    prev = fb._slot_onehot(state.newest_clone_slot, K)[:, None, :]            # [B, 1, K]
+    mask_prev = (bank.mask & prev).any(dim=-1)                                 # [B, F]
+    uv_prev = torch.where(prev[..., None], bank.uv, 0.0).sum(dim=2)           # [B, F, 2]
+    finite = torch.isfinite(obs_uv).all(dim=-1)
+    eqz = (obs_id[:, :, None] == bank.fid[:, None, :]) & (bank.fid >= 0)[:, None, :]   # [B, O, F]
+    row = fb.first_true(eqz)
+    both = eqz.any(dim=-1) & mask_prev.gather(1, row) & (obs_id >= 0) & finite
+    dd = torch.linalg.vector_norm(torch.where(finite[..., None], obs_uv, 0.0) - fb._take(uv_prev, row), dim=-1)
+    n = both.sum(dim=-1)
+    return torch.where(both, dd, torch.zeros_like(dd)).sum(dim=-1) / torch.clamp(n, min=1), n
+
+
 def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData):
     """One camera frame of every stream (do_feature_propagate_update,
-    VioManager.cpp:330-986, without ZUPT). Returns (state, bank, StepOutput)."""
+    VioManager.cpp:330-986). Returns (state, bank, StepOutput)."""
     if state.cov.device != eng.device:
         raise ValueError(f"state lies on {state.cov.device}, the engine on {eng.device}")
     dev = state.imu.device
     B = state.imu.shape[0]
     noises, gravity = _imu_constants(eng, state.imu.dtype, dev)
+    state_in, bank_in = state, bank
+
+    # 0. ZUPT attempt before propagation (VioManager.cpp:305-313): a stream
+    #    that accepts it keeps the ZUPT-updated state (time advanced, no
+    #    clone) and its pre-frame bank; the select is the last stage.
+    if eng.try_zupt:
+        with record_function("step.zupt"):
+            avg_disp, n_disp = zupt_disparity(state, bank, frame.obs_id, frame.obs_uv)
+            state_zupt, zupt_ok = try_zupt(state, eng.zupt_opts, frame.imu_t, frame.imu_w, frame.imu_a,
+                                           frame.t_new, avg_disp, n_disp)
+            zupt_accepted = zupt_ok & ~(eng.zupt_opts.only_at_beginning & state.has_moved)
 
     # 1. Propagate + stochastic clone into a recycled slot.
     with record_function("step.propagate_and_clone"):
         state, new_slot = propagate_and_clone(state, frame.imu_t, frame.imu_w, frame.imu_a, frame.t_new,
                                               noises, gravity, eng.prop_opts)
+
+    if eng.try_zupt and eng.zupt_opts.explicit_zero_motion:
+        # Explicit zero-motion variant (UpdaterZeroVelocity.cpp:252-313) on
+        # this frame's clone; before the first clone exists the standard
+        # formulation's result stands.
+        with record_function("step.zupt"):
+            explicit = zupt_explicit_update(state, eng.zupt_opts, state_in.newest_clone_slot, new_slot)
+            state_zupt = tree_where(state_in.num_clones > 0, explicit, state_zupt)
 
     # 2. Undistort + ingest at the new slot; non-finite pixels are dropped.
     with record_function("step.ingest"):
@@ -316,7 +389,8 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
         obs_id = torch.where(obs_finite, frame.obs_id, -1)
         obs_uv = torch.where(obs_finite[..., None], frame.obs_uv, 0.0)
         uvn = cams.undistort(obs_uv, state.cam_zeta[:, None, :], eng.cam_model)
-        bank = fb.ingest(bank, obs_id, obs_uv, uvn, frame.obs_plane, new_slot)
+        bank = fb.ingest(bank, obs_id, obs_uv, uvn, frame.obs_plane, new_slot,
+                         gt_p=frame.obs_gt_p, gt_cp=frame.obs_gt_cp)
 
     # 3. Triage, masked off until enough clones (VioManager.cpp:355).
     with record_function("step.triage"):
@@ -395,8 +469,19 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
             p_in_state = peq.any(dim=-1)
             p_slot = fb.first_true(peq)
             sel_cp = fb._take(state.plane_cp, p_slot)
-            plane = dict(sel_plane_cp=sel_cp, sel_plane_cp_fej=fb._take(state.plane_cp_fej, p_slot),
-                         sel_has_plane=p_in_state, sel_plane_in_state=p_in_state, sel_plane_slot=p_slot)
+            sel_cp_fej = fb._take(state.plane_cp_fej, p_slot)
+            has_plane = p_in_state
+            if eng.use_groundtruths:
+                # The true CPs of the features whose plane is in the state,
+                # and constraint rows for every feature on a plane
+                # (UpdaterMSCKF.cpp:284-302; manager.py:594-599 of the JAX package).
+                sel_cp = torch.where(has_plane[..., None], fb._take(bank.gt_cp, sel_idx), sel_cp)
+                sel_cp_fej = sel_cp
+                has_plane = sel_pid >= 0
+            plane = dict(sel_plane_cp=sel_cp, sel_plane_cp_fej=sel_cp_fej, sel_has_plane=has_plane,
+                         sel_plane_in_state=p_in_state, sel_plane_slot=p_slot)
+        if eng.use_groundtruths:
+            plane["gt_p"] = fb._take(bank.gt_p, sel_idx)
         state, used, _, _ = msckf_update(state, eng.msckf_opts, fb._take(bank.uv, sel_idx),
                                          fb._take(bank.uvn, sel_idx), sel_mask, **plane)
         if eng.msckf_opts.use_plane_constraint:
@@ -433,6 +518,15 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
         state = marginalize_oldest_clone(state, eng.max_clone_size)
         cleared = fb.clear_clone_column(bank, marg_slot)
         bank = tree_where(over, cleared, bank)
+
+    if eng.try_zupt:
+        # 11. Per stream, the ZUPT state and the pre-frame bank where the ZUPT
+        #     was accepted (this frame's tracks are dropped, UpdaterZeroVelocity.cpp:241-247).
+        has_moved = state.has_moved | ~zupt_accepted
+        state = tree_where(zupt_accepted, state_zupt, state).replace(has_moved=has_moved)
+        bank = tree_where(zupt_accepted, bank_in, bank)
+        used = used & ~zupt_accepted[:, None]
+    else:
         state = state.replace(has_moved=torch.ones_like(state.has_moved))
 
     diag = torch.diagonal(state.cov, dim1=-2, dim2=-1)
@@ -476,6 +570,8 @@ def run_sequence(eng: VioEngine, state: VioState, bank: fb.FeatureBank, sim_data
             obs_id=sim_data.obs_id[..., i, :].expand(B, -1),
             obs_uv=sim_data.obs_uv[:, i],
             obs_plane=sim_data.obs_plane[..., i, :].expand(B, -1),
+            obs_gt_p=None if sim_data.obs_gt_p is None else sim_data.obs_gt_p[i].expand(B, -1, 3),
+            obs_gt_cp=None if sim_data.obs_gt_cp is None else sim_data.obs_gt_cp[i].expand(B, -1, 3),
         )
         state, bank, out = step(eng, state, bank, frame)
         outs.append(out)

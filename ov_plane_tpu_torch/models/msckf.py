@@ -46,11 +46,13 @@ def chi2_table(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 def msckf_update(state: VioState, opts: MsckfOptions, sel_uv, sel_uvn, sel_mask,
                  sel_plane_cp=None, sel_plane_cp_fej=None, sel_has_plane=None, sel_plane_in_state=None,
-                 sel_plane_slot=None):
+                 sel_plane_slot=None, gt_p=None):
     """sel_uv / sel_uvn [B, M, K, 2], sel_mask [B, M, K] (already ANDed with
     the selection validity). The plane arguments [B, M] (CPs [B, M, 3]) give
     each feature's plane; with ``opts.use_plane_constraint`` the features
-    with ``sel_has_plane`` get point-on-plane rows. Returns (new_state,
+    with ``sel_has_plane`` get point-on-plane rows. ``gt_p`` [B, M, 3]
+    (ground-truth injection, UpdaterMSCKF.cpp:284-302) replaces the
+    triangulation of every feature with a nonzero truth. Returns (new_state,
     used [B, M], p_FinG [B, M, 3], tri_ok [B, M])."""
     lay = state.layout
     K, D = lay.max_clones, lay.dim
@@ -60,6 +62,10 @@ def msckf_update(state: VioState, opts: MsckfOptions, sel_uv, sel_uvn, sel_mask,
     sel_mask = sel_mask & torch.isfinite(state.clones_t)[:, None, :]
     clones = clone_set_from_state(state)
     p_f, tri_ok = triangulate(sel_uvn, sel_mask, clones.R_GtoC, clones.p_CinG, opts.tri)
+    if gt_p is not None:
+        has_gt = (gt_p != 0.0).any(dim=-1)
+        p_f = torch.where(has_gt[..., None], gt_p.to(dtype), p_f)
+        tri_ok = tri_ok | has_gt
 
     # FEJ feature value = the fresh triangulation (UpdaterMSCKF).
     use_plane = None

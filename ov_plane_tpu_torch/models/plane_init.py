@@ -12,7 +12,9 @@ StateHelper::merge_planes_and_marginalize):
   → per-feature nullspace projection of the point columns → compression →
   QR split on the CP columns → χ² gate → ``initialize_invertible`` into a
   free plane slot + the leftover update. Features of a successful init are
-  freed.
+  freed. With ``use_ransac`` the triangulated support first passes a plane
+  RANSAC (``ops/planefit.plane_ransac``) whose draws :func:`ransac_draws`
+  makes from (8888, plane id).
 * :func:`merge_planes` — frontend plane-id merges: rename, or a gated
   3-row merge update and marginalization of the merged-away plane.
 * :func:`marginalize_unseen_planes` — plane states without a supporting
@@ -33,7 +35,13 @@ from ov_plane_tpu_torch.models.feature_bank import first_true, topk_first_index
 from ov_plane_tpu_torch.models.jacobians import JacobianOptions, clone_set_from_state, feature_jacobian_full
 from ov_plane_tpu_torch.models.msckf import chi2_table
 from ov_plane_tpu_torch.ops import ekf
-from ov_plane_tpu_torch.ops.planefit import PlaneRefineOptions, fit_plane_lsq, refine_plane_joint
+from ov_plane_tpu_torch.ops.planefit import (
+    PlaneRansacOptions,
+    PlaneRefineOptions,
+    fit_plane_lsq,
+    plane_ransac,
+    refine_plane_joint,
+)
 from ov_plane_tpu_torch.ops.triangulation import TriangulationOptions, triangulate
 from ov_plane_tpu_torch.state.vio_state import VioState, tree_where
 
@@ -51,8 +59,38 @@ class PlaneInitOptions(NamedTuple):
     max_msckf_plane: int = 20
     max_inits_per_frame: int = 2
     use_refine_plane_feat: bool = True
+    # RANSAC on the triangulated support before the fit (PlaneFitting::plane_fitting).
+    use_ransac: bool = False
+    ransac: PlaneRansacOptions = PlaneRansacOptions()
     use_info_compression: bool = False
     sigma_c_adaptive: bool = False
+
+
+RANSAC_SEED = 8888
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (xorshift-multiply rounds) on int64 tensors
+    holding values below 2**32; every product stays below 2**63."""
+    m = 0xFFFFFFFF
+    x = ((x >> 16) ^ x) * 0x45D9F3B & m
+    x = ((x >> 16) ^ x) * 0x45D9F3B & m
+    return (x >> 16) ^ x
+
+
+def ransac_draws(plane: torch.Tensor, num_hyps: int, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """Uniform draws in [0, 1) for the RANSAC of plane ids [B]: [B, num_hyps, n].
+
+    A counter-based hash of (RANSAC_SEED, plane id, hypothesis, point) made
+    on the device: a candidate's draws depend on its plane id alone, as the
+    JAX package's ``fold_in(PRNGKey(8888), plane)`` keys do (whose draws a
+    torch generator cannot reproduce; the parity tests pass JAX's own), and
+    no plane id is read on the host inside a step."""
+    dev = plane.device
+    key = _mix32((plane.to(torch.int64) & 0xFFFFFFFF) ^ RANSAC_SEED)[:, None, None]
+    ctr = torch.arange(num_hyps * n, device=dev, dtype=torch.int64).reshape(1, num_hyps, n)
+    bits = _mix32(_mix32(key ^ ctr) + 0x9E3779B9 & 0xFFFFFFFF)
+    return ((bits >> 8).to(dtype)) * (1.0 / (1 << 24))
 
 
 def distinct_candidates(pid: torch.Tensor):
@@ -205,6 +243,11 @@ def plane_delayed_init(state: VioState, bank: fb.FeatureBank, opts: PlaneInitOpt
         p_f, tri_ok = triangulate(uvn, masks, clones.R_GtoC, clones.p_CinG, opts.tri)
         fvalid = fvalid & tri_ok
         masks = masks & fvalid[..., None]
+        if opts.use_ransac:
+            _, inl, r_ok = plane_ransac(p_f, fvalid, ransac_draws(plane, opts.ransac.num_hyps, Mp, dtype),
+                                        opts.ransac)
+            fvalid = torch.where(r_ok[:, None], fvalid & inl, fvalid)
+            masks = masks & fvalid[..., None]
 
         # One group per stream: the [B, G=1, ...] form of the shared helpers.
         cp, p_f, fvalid1, masks1, valid1, sigma_c = fit_and_refine(

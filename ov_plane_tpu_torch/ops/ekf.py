@@ -73,6 +73,23 @@ def clone_block(cov: torch.Tensor, src: int, dst: torch.Tensor, size: int) -> to
     return write_slot(cov, dst, cov[:, :, src:src + size], cov[:, src:src + size, src:src + size])
 
 
+def augment_clone_timeoffset(cov: torch.Tensor, dst: torch.Tensor, dnc_dt: torch.Tensor, dt_idx: int) -> torch.Tensor:
+    """Time-offset coupling of a fresh clone (StateHelper::augment_clone,
+    StateHelper.cpp:613-624): the clone at slot start ``dst`` [B] is a
+    function of the camera-IMU offset with d(clone)/d(dt) = dnc_dt [B, 6].
+
+    Two adds, the second reading the dt row the first has updated: P_dt,dt
+    then reaches the clone's own block as dnc·P_dt,dt·dncᵀ (a snapshot of the
+    original row leaves P indefinite). The clone's six columns and rows are
+    masks over D, so every index stays in range."""
+    B, D, _ = cov.shape
+    in_slot = _slot_mask(D, dst, 6)                                        # [B, D]
+    k_of = (torch.arange(D, device=cov.device)[None, :] - dst[:, None]).clamp(0, 5)
+    dnc_at = torch.where(in_slot, dnc_dt.gather(1, k_of), torch.zeros_like(cov[:, 0]))   # [B, D]
+    cov = cov + cov[:, :, dt_idx:dt_idx + 1] * dnc_at[:, None, :]            # columns
+    return cov + dnc_at[:, :, None] * cov[:, dt_idx:dt_idx + 1, :]           # rows, updated dt row
+
+
 def kalman_update(cov: torch.Tensor, H: torch.Tensor, res: torch.Tensor, r_diag: torch.Tensor):
     """EKF update with full-width H in square-root form (StateHelper::EKFUpdate).
 
@@ -117,8 +134,17 @@ def apply_dx(state, dx: torch.Tensor):
         _quat_boxplus(state.imu[:, 0:4], dx[:, lay.IMU_TH:lay.IMU_TH + 3]),
         state.imu[:, 4:16] + dx[:, lay.IMU_P:lay.IMU_P + 12],
     ], dim=1)
-    if lay.calib_dt or lay.calib_pose or lay.calib_intr:
-        raise NotImplementedError("calibration error states come with a later slice of the port")
+    calib = {}
+    # Calibration blocks exist in the error state only when their layout flag
+    # is on; a disabled block's mean is carried through.
+    if lay.calib_dt:
+        calib["calib_dt"] = state.calib_dt + dx[:, lay.dt_idx]
+    if lay.calib_pose:
+        i = lay.cam_pose_idx
+        calib["calib_cam"] = torch.cat([_quat_boxplus(state.calib_cam[:, 0:4], dx[:, i:i + 3]),
+                                        state.calib_cam[:, 4:7] + dx[:, i + 3:i + 6]], dim=1)
+    if lay.calib_intr:
+        calib["cam_zeta"] = state.cam_zeta + dx[:, lay.cam_intr_idx:lay.cam_intr_idx + 8]
     K, L, P = lay.max_clones, lay.max_slam, lay.max_planes
     dclone = dx[:, lay.clone_base:lay.clone_base + 6 * K].reshape(B, K, 6)
     dslam = dx[:, lay.slam_base:lay.slam_base + 3 * L].reshape(B, L, 3)
@@ -129,6 +155,7 @@ def apply_dx(state, dx: torch.Tensor):
         clones_p=state.clones_p + dclone[..., 3:6],
         slam_p=state.slam_p + dslam,
         plane_cp=state.plane_cp + dplane,
+        **calib,
     )
 
 

@@ -1,12 +1,13 @@
 """Plane estimation from sparse points: closed-form fit + joint refinement.
 
-Counterpart of ``ov_plane_tpu/ops/planefit.py`` (all of it but
-``plane_ransac``, which comes with ``use_plane_ransac``) over leading batch
+Counterpart of ``ov_plane_tpu/ops/planefit.py`` over leading batch
 dimensions: one plane per stream for the delayed init ([B]), one per stream
 and group for the grouped MSCKF update ([B, G]).
 
 * :func:`fit_plane_lsq` — the linear A·x = −1 fit with its condition number
   (PlaneFitting::fit_plane);
+* :func:`plane_ransac` — the hypothesis search of PlaneFitting::plane_fitting
+  with every hypothesis drawn and scored at once;
 * :func:`refine_plane_joint` — the Ceres ``optimize_plane`` as fixed-count
   Levenberg-Marquardt over (features, CP) with Cauchy IRLS weights, the
   features eliminated per iteration by a 3×3 Schur complement, then the
@@ -25,6 +26,14 @@ import torch
 
 from ov_plane_tpu_torch.ops.ekf import inv3
 from ov_plane_tpu_torch.ops.triangulation import eigvals_sym3
+
+
+class PlaneRansacOptions(NamedTuple):
+    num_hyps: int = 64
+    sample_size: int = 5
+    inlier_thresh: float = 0.05      # |n·p − d| in meters
+    min_inlier_ratio: float = 0.80   # accept gate (inliers / valid points)
+    min_spacing: float = 0.10        # min pairwise distance within a sample
 
 
 class PlaneRefineOptions(NamedTuple):
@@ -63,6 +72,42 @@ def fit_plane_lsq(points: torch.Tensor, mask: torch.Tensor):
     # Plane x·p + 1 = 0  ->  n = −x/‖x‖, d = 1/‖x‖, cp = −x/‖x‖².
     cp = -x / torch.clamp(norm_x**2, min=1e-18)[..., None]
     return cp, cond, ok
+
+
+def plane_ransac(points: torch.Tensor, mask: torch.Tensor, uniforms: torch.Tensor, opts: PlaneRansacOptions):
+    """Robust plane fit by batched hypothesis search (PlaneFitting::plane_fitting,
+    PlaneFitting.cpp:83-195): every hypothesis is scored at once.
+
+    points [..., N, 3], mask [..., N]; uniforms [..., H, N] in [0, 1), one
+    row of draws per hypothesis (H = ``opts.num_hyps``): a hypothesis takes
+    the ``sample_size`` valid points of largest draw (the lower index first
+    on ties, as ``jax.lax.top_k``), is masked unless its points are
+    ``min_spacing`` apart, and counts the points within ``inlier_thresh`` of
+    its LSQ plane. The best count (the first on ties) must reach
+    ``min_inlier_ratio`` of the valid points; the plane is refit on its
+    inliers. Returns (cp [..., 3], inliers [..., N], ok [...])."""
+    dtype = points.dtype
+    S = opts.sample_size
+    n_valid = mask.sum(dim=-1)                                               # [...]
+    scores = torch.where(mask[..., None, :], uniforms.to(dtype), -torch.inf)  # [..., H, N]
+    idx = torch.sort(scores, dim=-1, descending=True, stable=True)[1][..., :S]
+    pts = torch.gather(points[..., None, :, :].expand(*scores.shape, 3), -2, idx[..., None].expand(*idx.shape, 3))
+    d2 = torch.sum((pts[..., :, None, :] - pts[..., None, :, :]) ** 2, dim=-1)
+    d2 = d2 + torch.eye(S, dtype=dtype, device=points.device) * 1e9
+    spaced = d2.flatten(-2).min(dim=-1).values > opts.min_spacing**2      # [..., H]
+    cp, _, fit_ok = fit_plane_lsq(pts, torch.ones(idx.shape, dtype=torch.bool, device=points.device))
+    d = torch.clamp(_norm(cp), min=1e-9)
+    n = cp / d[..., None]
+    dist = torch.abs(torch.sum(points[..., None, :, :] * n[..., None, :], dim=-1) - d[..., None])
+    inl = (dist < opts.inlier_thresh) & mask[..., None, :]                  # [..., H, N]
+    hyp_ok = spaced & fit_ok & (n_valid >= S)[..., None]
+    counts = torch.where(hyp_ok, inl.sum(dim=-1), -1)
+    best = torch.argmax(counts, dim=-1, keepdim=True)                        # first of the best
+    inliers = torch.gather(inl, -2, best[..., None].expand(*best.shape, inl.shape[-1]))[..., 0, :]
+    n_inl = torch.gather(counts, -1, best)[..., 0]
+    ok = ((n_inl.to(dtype) >= opts.min_inlier_ratio * torch.clamp(n_valid, min=1).to(dtype)) & (n_inl >= S))
+    cp, _, refit_ok = fit_plane_lsq(points, inliers)
+    return cp, inliers, ok & refit_ok
 
 
 def _reproj_system(p, uvn, mask, R_GtoC, p_CinG, white_px):

@@ -56,9 +56,9 @@ from ov_plane_tpu_torch.utils.torchenv import resolve_device
 
 # Flags whose modules wait for a later slice: flag -> (module, ROADMAP item).
 NOT_PORTED = {
-    "bag": ("eval/rosbag.py", "queue 1, item 2"),
-    "loop_out": ("eval/loopclosure.py", "queue 1, item 2"),
-    "viz_dir": ("eval/trackviz.py", "queue 1, item 2"),
+    "bag": ("eval/rosbag.py", "queue 1, item 1"),
+    "loop_out": ("eval/loopclosure.py", "queue 1, item 1"),
+    "viz_dir": ("eval/trackviz.py", "queue 1, item 1"),
 }
 
 

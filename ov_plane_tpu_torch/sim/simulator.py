@@ -102,6 +102,9 @@ class SimData(NamedTuple):
     gt_v: torch.Tensor
     gt_bg_cam: torch.Tensor    # [B, Tc, 3]
     gt_ba_cam: torch.Tensor    # [B, Tc, 3]
+    # Each observation's truth, for ground-truth injection (``build_sim`` scenes).
+    obs_gt_p: torch.Tensor | None = None   # [Tc, O, 3]
+    obs_gt_cp: torch.Tensor | None = None  # [Tc, O, 3]
 
 
 class NoiseParams(NamedTuple):
@@ -177,6 +180,7 @@ def apply_noise(truth: SimTruth, noise: NoiseParams, batch: int, generator: torc
         gt_q=truth.gt_q, gt_p=truth.gt_p, gt_v=truth.gt_v,
         gt_bg_cam=_interp(truth.imu_t, gt_bg, truth.cam_t_imu),
         gt_ba_cam=_interp(truth.imu_t, gt_ba, truth.cam_t_imu),
+        obs_gt_p=truth.obs_gt_p, obs_gt_cp=truth.obs_gt_cp,
     )
 
 

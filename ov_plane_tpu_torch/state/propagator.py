@@ -23,6 +23,7 @@ class PropagatorOptions(NamedTuple):
     use_rk4: bool = True
     imu_avg: bool = True
     do_fej: bool = True
+    do_calib_camera_timeoffset: bool = False
 
 
 def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -210,17 +211,22 @@ def propagate_and_clone(state: VioState, imu_t, imu_w, imu_a, t_new, noises, gra
                         opts: PropagatorOptions):
     """Frame propagation + stochastic cloning into a recycled slot
     (Propagator::propagate_and_clone + StateHelper::augment_clone).
-    Returns (state, slot [B])."""
+    The IMU interval is [t + last_dt, t_new + calib_dt] (camera clock to
+    IMU clock, Propagator.cpp:60-78). With the time offset calibrated, the
+    new clone is coupled to it by d(clone)/d(dt) = [ω, v] (the last angular
+    rate without bias, the new velocity). Returns (state, slot [B])."""
     lay = state.layout
     t0_imu = state.t + state.last_dt
     t1_imu = t_new + state.calib_dt
-    imu_n, fej_n, phi, qd, _ = propagate_mean_cov(
+    imu_n, fej_n, phi, qd, last_w = propagate_mean_cov(
         state.imu, state.imu_fej, imu_t, imu_w, imu_a, t0_imu, t1_imu, noises, gravity, opts)
     cov = ekf.propagate_cov(state.cov, phi, qd)
     slot = torch.argmin(state.clones_t, dim=1)                 # free slots hold -inf
     slot_col = lay.clone_base + 6 * slot
     cov = ekf.zero_slot(cov, slot_col, 6)
     cov = ekf.clone_block(cov, 0, slot_col, 6)
+    if opts.do_calib_camera_timeoffset:
+        cov = ekf.augment_clone_timeoffset(cov, slot_col, torch.cat([last_w, imu_n[:, 7:10]], dim=1), lay.dt_idx)
     oh = torch.nn.functional.one_hot(slot, lay.max_clones).bool()
     state = state.replace(
         t=t_new, last_dt=state.calib_dt, imu=imu_n, imu_fej=fej_n, cov=cov,

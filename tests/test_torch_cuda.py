@@ -31,7 +31,11 @@ SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in
 # dataset replay's at one stream (D = 156: the classic and SLAM updates, the
 # plane updates, the SLAM init's 33 rows, the merge slots) and the ladder
 # sweep's at its 20 seeds (M-PT and M-PL at D = 114, MS-PT and MS-PL at
-# D = 147). Every shape runs
+# D = 147), and slice 8's: the calibration run's at 16 streams (D = 129 with
+# the 15 calibration columns), the ZUPT's (its 6·63 = 378 rows at W = 64,
+# the explicit formulation's 9), the plane-RANSAC and ground-truth runs' at
+# 16 (D = 114) and the vision Monte-Carlo's at 8 seeds (D = 102, 4 plane
+# slots). Every shape runs
 # in both types: the grams in f64 (the classic update forms its Gram in f64
 # whatever the filter's type), the replay's downdates in f64 and in f32.
 SWEEP = [(64, 1320, 93), (64, 93, 93), (64, 1320, 114), (64, 114, 114), (64, 115, 114), (64, 3, 114),
@@ -39,7 +43,8 @@ SWEEP = [(64, 1320, 93), (64, 93, 93), (64, 1320, 114), (64, 114, 114), (64, 115
          (4, 1320, 147), (4, 147, 147), (4, 33, 147), (16, 114, 114), (16, 115, 114), (16, 3, 114),
          (1, 156, 156), (1, 157, 156), (1, 33, 156), (1, 3, 156),
          (20, 1320, 114), (20, 114, 114), (20, 115, 114), (20, 1320, 147), (20, 147, 147), (20, 148, 147),
-         (20, 33, 147)] + SWEEP
+         (20, 33, 147), (16, 1320, 129), (16, 129, 129), (16, 378, 114), (16, 9, 114), (16, 1320, 114),
+         (8, 1320, 102), (8, 102, 102), (8, 103, 102), (8, 3, 102)] + SWEEP
 
 
 def _inputs(B, M, D, dtype, g, offset):

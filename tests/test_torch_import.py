@@ -78,20 +78,26 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
-    for key, value in (("try_zupt", True), ("use_aruco", True),
-                       ("state.use_groundtruths", True), ("tpu.shard_axis", "seq"),
-                       ("state.do_calib_camera_pose", True), ("state.do_calib_camera_intrinsics", True),
-                       ("state.do_calib_camera_timeoffset", True)):
+    """ArUco landmarks and sharded compression are the features still to port."""
+    for key, value in (("use_aruco", True), ("tpu.shard_axis", "seq")):
         cfg = slice_config()
         obj, *path = key.split(".")
         target = cfg if not path else getattr(cfg, obj)
         setattr(target, path[-1] if path else obj, value)
         with pytest.raises(NotImplementedError, match="later slice"):
             VioEngine.from_config(cfg, device="cpu")
+    # Calibration, ZUPT, plane RANSAC and ground-truth injection run.
+    for key, value in (("try_zupt", True), ("state.use_groundtruths", True),
+                       ("state.do_calib_camera_pose", True), ("state.do_calib_camera_intrinsics", True),
+                       ("state.do_calib_camera_timeoffset", True)):
+        cfg = slice_config()
+        obj, *path = key.split(".")
+        target = cfg if not path else getattr(cfg, obj)
+        setattr(target, path[-1] if path else obj, value)
+        VioEngine.from_config(cfg, device="cpu")
     cfg = plane_config()
     cfg.state.use_plane_ransac = True
-    with pytest.raises(NotImplementedError, match="plane RANSAC"):
-        VioEngine.from_config(cfg, device="cpu")
+    assert VioEngine.from_config(cfg, device="cpu").plane_opts.use_ransac
 
 
 def test_ms_pl_engine_has_slam_landmarks():
@@ -368,3 +374,68 @@ def test_simulator_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_
     assert ov_eval.eval_one(str(gt), str(gt), device="cpu")["ate_pos"] == 0.0
     truth = simulator.build_sim(cfg, device="cpu")
     assert truth.imu_t.device.type == "cpu" and truth.feat_p.shape[0] > 0
+
+
+FILTER_SLICE = ("ov_plane_tpu_torch.models.zupt", "ov_plane_tpu_torch.models.plane_init",
+                "ov_plane_tpu_torch.ops.planefit", "ov_plane_tpu_torch.ops.ekf", "ov_plane_tpu_torch.models.jacobians",
+                "ov_plane_tpu_torch.state.propagator", "ov_plane_tpu_torch.models.manager",
+                "ov_plane_tpu_torch.scripts.run_mc_vision")
+
+
+def test_calibration_zupt_ransac_slice_loads_no_jax_image_or_yaml_library():
+    """Calibration, ZUPT, plane RANSAC, ground truths and run_mc_vision import
+    none of JAX, the JAX package, PIL, OpenCV or PyYAML."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FILTER_SLICE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ov_plane_tpu', 'PIL', 'cv2', 'yaml')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    assert set(FILTER_SLICE) <= set(MODULES)
+
+
+@pytest.mark.parametrize("module", FILTER_SLICE)
+def test_calibration_zupt_ransac_slice_source_stands_alone(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    hits = STANDS_ALONE.findall(path.read_text())
+    assert not hits, f"{path.name} imports {hits}"
+
+
+def test_config_features_build_their_layout_and_options():
+    """The four features ``from_config`` accepts since slice 8 reach the
+    engine: calibration columns in the layout and the Jacobian and
+    propagator options, the ZUPT options, plane RANSAC, ground truths."""
+    cfg = slice_config()
+    cfg.state.do_calib_camera_timeoffset = True
+    cfg.state.do_calib_camera_pose = True
+    cfg.state.do_calib_camera_intrinsics = True
+    cfg.try_zupt = True
+    cfg.zupt_integrated_accel = True
+    cfg.state.use_groundtruths = True
+    eng = VioEngine.from_config(cfg, device="cpu")
+    assert eng.layout.dim == 93 + 15 and eng.layout.clone_base == 30
+    assert eng.msckf_opts.jac.do_calib_camera_pose and eng.msckf_opts.jac.do_calib_camera_intrinsics
+    assert eng.prop_opts.do_calib_camera_timeoffset
+    assert eng.try_zupt and eng.zupt_opts.integrated_accel and eng.use_groundtruths
+    z = torch.zeros(1, 3, dtype=torch.float64)
+    q = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=torch.float64)
+    st = init_state_with_gt(eng, cfg, t0=torch.zeros(1), q0=q, p0=z, v0=z, bg0=z, ba0=z, device="cpu")
+    lay = eng.layout
+    assert float(st.cov[0, lay.dt_idx, lay.dt_idx]) == 0.01**2
+    assert float(st.cov[0, lay.cam_intr_idx, lay.cam_intr_idx]) == 1.0
+
+
+def test_mc_vision_needs_cuda_unless_asked_for_cpu(monkeypatch):
+    from ov_plane_tpu_torch.scripts import run_mc_vision
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_mc_vision.main(["--scene", "tabletop", "--seeds", "1", "--max-frames", "1"])
+    cfg, render = run_mc_vision.scene_config("tabletop", False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_mc_vision.render_frames(cfg, simulator.load_scene(simulator.TABLETOP_SCENE_PATH, device="cpu"),
+                                    render, 1)

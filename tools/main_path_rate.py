@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Stream-frames/s of the port's main path, to compare two checkouts on one card.
 
-    python3 tools/main_path_rate.py [--root CHECKOUT] [--frames N]
+    python3 tools/main_path_rate.py [--root CHECKOUT] [--frames N] [--sweep]
 
 Imports ``ov_plane_tpu_torch`` from CHECKOUT (default: this repository) and
 drives it as ``chip_smoke.py`` phase 4 does: the committed simulator scene,
@@ -9,7 +9,12 @@ drives it as ``chip_smoke.py`` phase 4 does: the committed simulator scene,
 in f32 on the card; 3 frames of warm-up, then a timed run from a fresh state
 over N frames (default: every frame). Prints the card's name and power limit,
 then one JSON line: the checkout, frames, wall seconds, stream-frames/s and
-the two kernels' launch counts.
+the two kernels' launch counts. With ``--sweep`` it times the algorithm
+ladder instead, as ``chip_smoke.py`` phase 10 does: each variant of
+``scripts/run_sweep`` over the 20 noise seeds of the 6 s room scan of
+``data/sweep_jax_reference.npz`` (3 untimed frames first, then the whole
+scan from a fresh state; no CPU work beside it), one JSON line with each
+variant's stream-frames/s.
 
 The rate is host-bound and moves between machine calls, so compare two
 checkouts only within one call, in separate processes, alternating
@@ -35,6 +40,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--sweep", action="store_true", help="time the four ladder variants of run_sweep")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("main_path_rate: needs a CUDA card", file=sys.stderr)
@@ -53,6 +59,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
     kernels.build()
+    if args.sweep:
+        return sweep_rates(root)
     cfg = slice_config()
     truth = load_scene(dtype=torch.float32, device="cuda")
     sim = apply_noise(truth, noise_params(cfg), BATCH, torch.Generator(device="cuda").manual_seed(SEED))
@@ -79,6 +87,30 @@ def main() -> int:
                       "stream_frames_per_s": BATCH * n_frames / wall,
                       "launches": {"gram_reduce": kernels.gram_reduce.launches,
                                    "kalman_downdate": kernels.kalman_downdate.launches}}))
+    return 0
+
+
+def sweep_rates(root: str) -> int:
+    import numpy as np
+
+    from ov_plane_tpu_torch.scripts import run_sweep
+    from ov_plane_tpu_torch.sim import simulator
+
+    with np.load(Path(root) / "ov_plane_tpu_torch" / "data" / "sweep_jax_reference.npz") as z:
+        duration, seeds = float(z["duration"]), int(z["seeds"])
+    truths, rates = {}, {}
+    for name, (max_slam, use_planes) in run_sweep.VARIANTS.items():
+        cfg = run_sweep.make_config(duration, "", max_slam, use_planes)
+        if use_planes not in truths:
+            truths[use_planes] = simulator.build_sim(cfg, max_obs=cfg.tpu.max_obs_per_frame, device="cuda")
+        sim = run_sweep.noisy_scene(cfg, seeds, "cuda", truths[use_planes])
+        run_sweep.run_variant(cfg, seeds, "cuda", sim=sim, n_frames=3)
+        torch.cuda.synchronize()
+        t = time.time()
+        run = run_sweep.run_variant(cfg, seeds, "cuda", sim=sim)
+        torch.cuda.synchronize()
+        rates[name] = seeds * run.t.shape[0] / (time.time() - t)
+    print(json.dumps({"root": root, "sweep_stream_frames_per_s": rates}))
     return 0
 
 
