@@ -17,24 +17,24 @@ Phases (any failure raises and the exit code is nonzero):
    f32 only, a yardstick built here beside the package's kernels), the
    plain version and one PyTorch library call by
    device time alone (the durations of their CUDA kernels as torch.profiler
-   reports them, median of 25 calls, L2 flushed before each), and the
+   reports them, median of 15 calls, L2 flushed before each), and the
    wrapper's host time per call;
 4. drive the point path: the bench's simulator scene, 64 Monte-Carlo streams
    from a seeded generator, ``VioEngine`` + ``run_sequence`` over its first
-   16 frames in f32, timed from a fresh state after a warm-up run whose
-   steps 4-12 count the host synchronizations; check the launch counts,
-   finiteness,
+   16 frames in f32, timed from a fresh state after a 2-step warm-up, then
+   steps 4-12 again from the timed run's state after step 3 with the host
+   synchronizations counted; check the launch counts, finiteness,
    stream 0's accuracy and the agreement of two streams with an f64 CPU run
    of the port (the pose within the path's limits, and the per-frame count
    of features that passed the χ² gate equal on every stream-frame; every
-   CPU reference is queued and computed after the last phase, see
-   ``CpuRefs``); profile 2 frames;
+   CPU reference is queued and computed beside the last phase, see
+   ``CpuRefs``); profile 1 frame;
 5. drive the plane path the same way (``plane_config``, the committed M-PL
    scene, its first 24 frames, 64 streams, f32): also the plane states and
    constraint updates, every final CP within 0.10 m of a true plane, and the
    per-frame plane counters against the f64 CPU run (24 frames);
 5b. drive the MS-PL path the same way (``ms_pl_config``: SLAM landmarks and
-   planes, D = 147, the M-PL scene, 32 frames): also SLAM inits and
+   planes, D = 147, the M-PL scene, 30 frames): also SLAM inits and
    landmarks on every stream, landmark updates, and the per-frame SLAM and
    plane counters against the f64 CPU run (30 frames, the first SLAM inits
    at frame 20); then 4 streams of MS-PT with anchored landmarks
@@ -45,13 +45,13 @@ Phases (any failure raises and the exit code is nonzero):
    on the card, add each stream's fixed pixel noise, quantize to the 8-bit
    lattice and stage the ring on the card; ``VioEngine.from_config`` →
    ``FusedVisionDriver(cfg, eng, 64)`` → ``init_frontend`` → ``stage_image``
-   → ``step_batch`` per frame → ``flush_stream``. A 12-frame warm-up counts
+   → ``step_batch`` per frame → ``flush_stream``. An 8-frame warm-up counts
    the host synchronizations per step (only the one packed pull), then 36
    frames from a fresh state are timed: launch counts, stream 0's accuracy,
    the host detector's plane labels reaching the step over the 64 streams,
    and streams 0–1 against the port's CPU
-   run (frontend f32, filter f64) over 12 frames: track ids and valid
-   flags, the per-frame plane counters (equal) and the pose; a 2-frame profile by range;
+   run (frontend f32, filter f64; queued) over 12 frames: track ids and valid
+   flags, the per-frame plane counters (equal) and the pose; a 1-frame profile by range;
 6b. the fused path's plane update on the tabletop scene (``tabletop_config``,
    the JAX package's plane-firing scene): its 46 frames rendered on the card,
    16 streams through ``step_batch`` in f32: the launch counts, CP plane
@@ -74,12 +74,14 @@ Phases (any failure raises and the exit code is nonzero):
 10. the algorithm ladder (``scripts/run_sweep``): the M-PL scene built on
    the card by the port's ``build_sim`` and held to the committed one (ids
    equal, floats within 1e-9); then M-PT, MS-PT, M-PL and MS-PL over 20
-   noise seeds of a 6 s room scan, each as 20 streams in f32: exact launch
+   noise seeds of the first 24 frames of a 6 s room scan, each as 20
+   streams in f32: exact launch
    counts, CP planes and SLAM landmarks where the variant has them, every
    TUM file and the ``ov_eval`` table, streams 0-1 against the port's CPU
    f64 run (20 frames, every counter equal, the pose within (1e-2 m, 1e-3)),
    and each variant's mean RMSE and NEES within 3 combined standard errors
-   of the committed JAX reference (``data/sweep_jax_reference.npz``);
+   of the committed JAX reference over the same frames
+   (``data/sweep_jax_reference.npz``);
 12. online calibration (time offset, extrinsics, intrinsics): the
    configuration of tests/test_torch_calib.py on the 20 s scene that
    ``build_sim`` makes on the card with a 15 ms camera-IMU offset, 16
@@ -98,15 +100,35 @@ Phases (any failure raises and the exit code is nonzero):
    with ground-truth injection, each with its launch counts and streams 0-1
    against the CPU f64 run (12 frames);
 15. ``scripts/run_mc_vision`` through its entry point (the tabletop scene,
-   sparse, 8 seeds, 48 frames per arm, planes ON and OFF): both arms finite,
+   sparse, 8 seeds, 24 frames per arm, planes ON and OFF): both arms finite,
    per-seed ATE and the paired statistics, the launch counts; the ON arm's
-   streams 0-1 against the port's CPU run over 12 frames, as the script ran
+   streams 0-1 against the port's CPU run over 8 frames, as the script ran
    it (u8 wire, ``mm_bf16``: printed) and with the exact ``mm`` sampler on
    the f32 wire (held), and frame 2's KLT on identical inputs on the card
    and the CPU under each sampler (printed: where the two runs part);
-   then every CPU reference (``CpuRefs``, after the last timed window) and
-   the comparisons with them;
-16. print the ``{"kernels": [...]}`` line, then the card and the device line last.
+16. (after phase 6) the chained dispatch: the vision path with
+   ``FusedVisionDriver(chain=4)`` and ``step_batch_chunk`` at B = 64 on the
+   vision phase's staged frames, one warm-up chunk and 4 timed chunks: no
+   host synchronization but the pull's event wait in any chunk, one pull
+   per chunk, exactly 4× the per-frame launches per chunk, stream-frames/s
+   at K = 1 and K = 4 and the ``last_times`` decomposition printed, streams
+   0-1 against their CPU f64 chained run (queued);
+17. (after phase 4) ``parallel.replay.batched_replay`` on the point path,
+   B = 64, its 16 frames: poses bitwise those of phase 4's ``run_sequence``,
+   the fleet RMSE equal to the host's recomputation;
+18. (after phase 17) ``utils.profiling.run_sequence_profiled`` on the point
+   path, 8 frames: the median ms per stage, every row's stages adding up
+   to its total;
+19. two spawned processes on the one card joined by gloo, each with a time
+   limit: (a) the point path in f64 with ``tpu.shard_axis = "sp"`` over 16
+   frames within 1e-8 m of the unsharded run, the ranks' states bitwise
+   equal, the per-rank gram through the kernel; (b) the vision path
+   dp-sharded at 2 ranks × 2 streams against 4 streams in one process; (c)
+   ``sharded_knn`` against ``knn``;
+   beside this last phase, every CPU reference (``CpuRefs``: its workers
+   start during the build; no earlier timed window shares the host with
+   one), then the comparisons with them;
+20. print the ``{"kernels": [...]}`` line, then the card and the device line last.
 
 Needs a CUDA card: without one it exits with code 2 and prints no result.
 """
@@ -178,10 +200,16 @@ CAL_BATCH = 16
 CAL_D = 129
 MC_D = 102
 F32, F64 = torch.float32, torch.float64
-# The CPU references run after the last phase, when the card's host thread
-# is idle, in WORKERS spawned processes of WORKER_THREADS threads each: the
-# step is host-bound, so a reference beside a timed window would slow it.
+# The CPU references run beside the last phase (the sharded ranks, held for
+# their results), in WORKERS spawned processes of WORKER_THREADS threads
+# each: the step is host-bound, so a reference beside an earlier timed
+# window would slow it.
 WORKERS, WORKER_THREADS = 8, 1
+# Slice 9 (phases 16-19): the chain runs the vision path's shapes; the batched
+# replay and the staged profiler the point path's; the sharded point replay
+# (f64) launches the gram on each rank's half of the 1320 stacked rows and
+# the downdate in f64; the dp-sharded vision run the vision path's shapes at
+# 2 streams per rank and, in its one-process comparison, at 4.
 # (path, kernel, (B, M, D), dtype) of every launch shape.
 PATH_SHAPES = [
     ("point", "gram_reduce", (BATCH, GRAM_M, 93), F64),
@@ -207,6 +235,16 @@ PATH_SHAPES = [
     *((p, "kalman_downdate", (CAL_BATCH, M, 114), F32) for p in ("ransac", "gt") for M in (114, 115)),
     ("mc-vision", "gram_reduce", (8, GRAM_M, MC_D), F64),
     *(("mc-vision", "kalman_downdate", (8, M, MC_D), F32) for M in (MC_D, MC_D + 1, 3)),
+    ("chain", "gram_reduce", (BATCH, GRAM_M, 114), F64),
+    *(("chain", "kalman_downdate", (BATCH, M, 114), F32) for M in (114, 115, 3)),
+    ("batched-replay", "gram_reduce", (BATCH, GRAM_M, 93), F64),
+    ("batched-replay", "kalman_downdate", (BATCH, 93, 93), F32),
+    ("profiled", "gram_reduce", (BATCH, GRAM_M, 93), F64),
+    ("profiled", "kalman_downdate", (BATCH, 93, 93), F32),
+    ("sharded", "gram_reduce", (BATCH, GRAM_M // 2, 93), F64),
+    ("sharded", "kalman_downdate", (BATCH, 93, 93), F64),
+    *(("sharded-dp", "gram_reduce", (b, GRAM_M, 114), F64) for b in (2, 4)),
+    *(("sharded-dp", "kalman_downdate", (b, M, 114), F32) for b in (2, 4) for M in (114, 115, 3)),
 ]
 PATH_NAMES = tuple(dict.fromkeys(p for p, *_ in PATH_SHAPES))
 
@@ -262,7 +300,7 @@ def _is_flush(name: str) -> bool:
     return "bitwise_not" in name or "unsigned char" in name or name.startswith("Memset")
 
 
-def device_ms(fn, n: int = 25, warmup: int = 3, attempts: int = 3, parts: dict | None = None) -> float:
+def device_ms(fn, n: int = 15, warmup: int = 3, attempts: int = 3, parts: dict | None = None) -> float:
     """Median device time of one call of ``fn``: the summed durations of the
     CUDA kernels it launches, as torch.profiler reports them. Before each call
     two kernels rewrite and then read FLUSH_BYTES of uint8, so every call finds
@@ -503,15 +541,16 @@ PATHS = (
     PathSpec("plane", "plane_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 4}, 4, 24, 24),
     # Phase 5b: MS-PL on the same scene (slice 5): the plane path's downdates,
     # the SLAM update and the eight delayed-init candidates; the first SLAM
-    # inits come at frame 20, so its first 32 frames hold 12 frames of
+    # inits come at frame 20, so its first 30 frames hold 10 frames of
     # landmarks, the sync check covers steps 21-29 and the CPU check frames
     # 1-30. It holds
     # the pose limits of every path: with the classic update's Gram formed
     # and factored in f64, the card's f32 run read at most |Δp| 1.842e-4 m and
     # |Δq| 1.670e-5 over the noise draws of seeds 7-12 (8.178e-3 before;
     # PERF.md §6).
-    PathSpec("ms-pl", "ms_pl_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 13}, 21, 30, 32),
+    PathSpec("ms-pl", "ms_pl_config", "PLANE_SCENE_PATH", {"gram_reduce": 1, "kalman_downdate": 13}, 21, 30, 30),
 )
+PATH_WARM = 2           # untimed warm-up steps of each path before its timed run
 PLANE_COUNTERS = ("n_planes", "n_plane_init", "n_plane_constraints", "n_plane_merges", "n_plane_dropped")
 SLAM_COUNTERS = ("n_slam", "n_slam_init", "n_slam_update")
 
@@ -584,37 +623,26 @@ def drive_path(spec: PathSpec, refs: CpuRefs):
     n_ref = min(spec.ref_frames, n_frames)
     job = refs.submit(spec.name, _cpu_reference, cfg, _to_host(sim, 2), n_ref)
 
-    # Warm-up (library handles, allocator) up to the checked window, then 9
-    # steps with host synchronizations counted (warnings from
-    # torch.cuda.set_sync_debug_mode); the state after them is kept for the
-    # profile. Then the timed run from a fresh state.
-    state, bank = _fresh(eng, cfg, sim, BATCH, dev, dtype)
+    # Warm-up (library handles, the allocator at this path's shapes): PATH_WARM
+    # untimed steps from a fresh state. Then the timed run from a fresh
+    # state, its state after step s0 - 1 kept; then, untimed, 9 steps from
+    # that state with host synchronizations counted (warnings from
+    # torch.cuda.set_sync_debug_mode), the state after them kept for the
+    # profile.
     s0, s1 = spec.sync_start, spec.sync_start + 9
-    t = time.time()
-    state, bank, _ = run_sequence(eng, state, bank, sim, imu_window=window, n_frames=s0 - 1)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            snapshot = run_sequence(eng, state, bank, sim, imu_window=window, n_frames=9, start=s0)[:2]
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    syncs = sorted({str(w.message).splitlines()[0] for w in caught
-                    if "synchronizing CUDA operation" in str(w.message)})
-    print(f"{tag} host synchronizations inside steps {s0}-{s1 - 1}: {len(syncs)} {syncs[:5]} "
-          f"(warm-up and check {time.time() - t:.1f} s)")
-    if syncs:
-        raise RuntimeError("the step synchronizes with the host")
-
+    state, bank = _fresh(eng, cfg, sim, BATCH, dev, dtype)
+    run_sequence(eng, state, bank, sim, imu_window=window, n_frames=PATH_WARM)
     state, bank = _fresh(eng, cfg, sim, BATCH, dev, dtype)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t = time.time()
-    state, bank, outs = run_sequence(eng, state, bank, sim, imu_window=window, n_frames=n_frames)
+    state, bank, outs_a = run_sequence(eng, state, bank, sim, imu_window=window, n_frames=s0 - 1)
+    at_s0 = (state, bank)
+    state, bank, outs_b = run_sequence(eng, state, bank, sim, imu_window=window, n_frames=n_frames - s0 + 1,
+                                       start=s0)
     torch.cuda.synchronize()
     wall = time.time() - t
+    outs = type(outs_a)(*(torch.cat(ab, dim=1) for ab in zip(outs_a, outs_b)))
     launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
     print(f"{tag} {BATCH}x{n_frames} stream-frames in {wall:.3f} s: "
           f"{BATCH * n_frames / wall:.1f} stream-frames/s ({n_frames / wall:.2f} frames/s per stream)")
@@ -622,6 +650,21 @@ def drive_path(spec: PathSpec, refs: CpuRefs):
     for k, n in launches.items():
         if n != spec.per_frame[k] * n_frames:
             raise RuntimeError(f"{k} launched {n} times over {n_frames} frames, not {spec.per_frame[k]} per frame")
+    t = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            snapshot = run_sequence(eng, *at_s0, sim, imu_window=window, n_frames=9, start=s0)[:2]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sorted({str(w.message).splitlines()[0] for w in caught
+                    if "synchronizing CUDA operation" in str(w.message)})
+    print(f"{tag} host synchronizations inside steps {s0}-{s1 - 1}: {len(syncs)} {syncs[:5]} "
+          f"(check {time.time() - t:.1f} s)")
+    if syncs:
+        raise RuntimeError("the step synchronizes with the host")
 
     for name, v in outs._asdict().items():
         if v.is_floating_point() and not torch.isfinite(v).all():
@@ -640,7 +683,7 @@ def drive_path(spec: PathSpec, refs: CpuRefs):
     if not rmse0 < 0.5:
         raise RuntimeError(f"stream 0 position RMSE {rmse0:.3f} m is not below 0.5 m")
     info = dict(stream_frames_per_s=BATCH * n_frames / wall, wall_s=wall, n_frames=n_frames,
-                eng=eng, cfg=cfg, sim=sim, snapshot=snapshot)
+                eng=eng, cfg=cfg, sim=sim, snapshot=snapshot, outs=outs)
     if eng.use_planes:
         info.update(check_planes(tag, state, outs, truth))
     if eng.use_slam:
@@ -735,7 +778,7 @@ def _raw_events(prof):
             for e in prof.profiler.kineto_results.events()]
 
 
-PROFILE_FRAMES = 2      # frames of each path's profile window
+PROFILE_FRAMES = 1      # frames of each path's profile window
 
 
 def profile_frames(spec: PathSpec, info: dict, n: int = PROFILE_FRAMES):
@@ -800,7 +843,7 @@ def report_profile(tag, prof, ranges, first, n, frame_wall_ms, wall_ms):
 
 
 VISION_FRAMES = 36      # the first 36 of the bench's 80 vision frames (bench.py:116)
-VISION_WARM = 12        # warm-up frames, the host synchronizations counted from the third
+VISION_WARM = 8         # warm-up frames, the host synchronizations counted from the third
 VISION_REF = 12         # frames of streams 0-1 against the port's CPU run
 ANCHOR_FRAMES = 36      # its frames: the first inits at frame 20 move anchor some 11 frames later
 TABLETOP_LAYERS = dict(texture_cell=0.1, speckle_cells=((0.05, 0.12, 0.30), 0.12))   # tests/test_fused_planes.py
@@ -883,15 +926,23 @@ def _imu_window(run: VisionRun, i: int, streams=slice(None)):
     return it, iw, ia, np.full(b, float(cam_t[i]))
 
 
-def vision_driver(run: VisionRun, eng, b: int, device, dtype):
-    """A fresh driver, state, bank and tracker state for b streams."""
+def _chunk_windows(run: VisionRun, i0: int, k: int, streams=slice(None)):
+    """Frames i0..i0+k-1's IMU windows and times stacked over a chunk: [k, b, ...]."""
+    import numpy as np
+
+    ws = [_imu_window(run, i0 + j, streams) for j in range(k)]
+    return tuple(np.stack([w[n] for w in ws]) for n in range(4))
+
+
+def vision_driver(run: VisionRun, eng, b: int, device, dtype, chain: int = 1):
+    """A fresh driver (chunks of ``chain`` frames), state, bank and tracker state for b streams."""
     from ov_plane_tpu_torch.frontend.fused import FusedVisionDriver
     from ov_plane_tpu_torch.models.feature_bank import FeatureBank
     from ov_plane_tpu_torch.models.manager import init_state_with_gt
 
     tr = run.truth
     # The bench spreads the detector's per-stream Delaunay calls over 4 threads (bench.py:261-264).
-    drv = FusedVisionDriver(run.cfg, eng, b, sampler=run.sampler, img_wire=run.wire, plane_threads=4)
+    drv = FusedVisionDriver(run.cfg, eng, b, sampler=run.sampler, img_wire=run.wire, plane_threads=4, chain=chain)
     st = init_state_with_gt(eng, run.cfg, t0=tr.cam_t_imu[0].expand(b), q0=tr.gt_q[0].expand(b, 4),
                             p0=tr.gt_p[0].expand(b, 3), v0=tr.gt_v[0].expand(b, 3), bg0=run.gt_bg0[:b],
                             ba0=run.gt_ba0[:b], dtype=dtype, device=device)
@@ -899,8 +950,10 @@ def vision_driver(run: VisionRun, eng, b: int, device, dtype):
     return drv, st, bank, drv.init_frontend()
 
 
-def drive_vision():
-    """Phase 6: the vision path at full width; returns (n_frames, launches, info)."""
+def drive_vision(refs: CpuRefs):
+    """Phase 6: the vision path at full width; returns (n_frames, launches,
+    info), ``info["finish"]()`` holding streams 0-1 to the CPU reference
+    queued on ``refs``."""
     from ov_plane_tpu_torch.eval.metrics import rmse_nees
     from ov_plane_tpu_torch.models.manager import VioEngine
     from ov_plane_tpu_torch.ops import kernels
@@ -913,7 +966,7 @@ def drive_vision():
     run = vision_setup(cfg, eng)
     print(f"{tag} D={eng.layout.dim}; B={BATCH}; {VISION_FRAMES} frames; set-up {time.time() - t:.2f} s")
 
-    # Warm-up: 12 frames; host synchronizations counted in steps 3-12 (the
+    # Warm-up: 8 frames; host synchronizations counted in steps 3-8 (the
     # first two make the libraries' handles), pulls counted by the driver.
     drv, st, bank, fev = vision_driver(run, eng, BATCH, "cuda", torch.float32)
     t = time.time()
@@ -945,10 +998,11 @@ def drive_vision():
     drv, st, bank, fev = vision_driver(run, eng, BATCH, "cuda", torch.float32)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    counters, pulls_ref, qs, ps, covs = [], [], [], [], []
+    counters, pulls_ref, qs, ps, covs, stamps = [], [], [], [], [], []
     t = time.time()
     labelled = n_labels = 0
     for i in range(1, VISION_FRAMES + 1):
+        stamps.append(time.time())      # before step i: the host-bound step's own pace
         fed = (drv._label_ids >= 0).sum(axis=1)
         labelled, n_labels = labelled + int((fed > 0).sum()), n_labels + int(fed.sum())
         st, bank, fev, out = drv.step_batch(st, bank, fev, run.ring[i - 1], *_imu_window(run, i))
@@ -1003,43 +1057,96 @@ def drive_vision():
     if labelled == 0:
         raise RuntimeError("no plane label reached the step on any stream")
 
-    # Streams 0-1 through the port on the CPU: frontend f32, filter f64.
-    t = time.time()
-    cpu_eng = VioEngine.from_config(run.cfg, device="cpu")
-    cdrv, cst, cbank, cfev = vision_driver(run, cpu_eng, 2, "cpu", torch.float64)
-    cq, cp, cpulls, ccounters = [], [], [], []
-    for i in range(1, VISION_REF + 1):
-        cst, cbank, cfev, cout = cdrv.step_batch(cst, cbank, cfev, run.ring[i - 1][:2].cpu(),
-                                                 *_imu_window(run, i, slice(0, 2)))
-        cq.append(cout.q)
-        cp.append(cout.p)
-        if i > 1:
-            cpulls.append(cdrv.last_pull.copy())
-            ccounters.append(cdrv.last_counters.copy())
-    cdrv.flush_stream()
-    cdrv.close()
-    cpulls.append(cdrv.last_pull.copy())
-    ccounters.append(cdrv.last_counters.copy())
-    card = np.stack(pulls_ref[:VISION_REF])[:, :, :-3]         # [T, 2, cap, 8]
-    ref = np.stack(cpulls)[:, :, :-3]
-    same = (card[..., 0] == ref[..., 0]) & (card[..., 3] == ref[..., 3])
+    # Streams 0-1 through the port on the CPU (frontend f32, filter f64), queued.
+    job = refs.submit("vision", _vision_cpu_reference, torch.stack(run.ring[:VISION_REF])[:, :2].cpu().numpy(),
+                      _host_imu(run, slice(0, 2)), run.gt_bg0[:2].cpu().numpy(), run.gt_ba0[:2].cpu().numpy(),
+                      run.sampler, run.wire)
+    info = dict(stream_frames_per_s=BATCH * VISION_FRAMES / wall, wall_s=wall, n_frames=VISION_FRAMES,
+                run=run, snapshot=snapshot, stamps=stamps)
+
+    def finish():
+        ref = job.result()
+        card = np.stack(pulls_ref[:VISION_REF])[:, :2]
+        hold_vision_to_cpu(tag, card, cnt[:VISION_REF, :2], p[:2, :VISION_REF], q[:2, :VISION_REF], ref, job.seconds)
+
+    info["finish"] = finish
+    return VISION_FRAMES, launches, info
+
+
+def _host_imu(run: VisionRun, streams) -> tuple:
+    imu_t, imu_w, imu_a, cam_t = run.imu
+    return imu_t, imu_w[streams], imu_a[streams], cam_t
+
+
+def _vision_cpu_reference(frames, imu, gt_bg0, gt_ba0, sampler: str, wire: str, chain: int = 1) -> dict:
+    """The vision scene's streams through the port on the CPU (frontend f32,
+    filter f64) in a ``CpuRefs`` worker: ``frames`` the staged u8 wire
+    [T, b, h, w], ``imu`` those streams' host IMU arrays; frame by frame or
+    in chunks of ``chain``. Returns the pulls and counters read (after each
+    step but the first, and after the flush; a chunk's pull [K, b, ...]) and
+    p, q [b, T, ...]."""
+    import numpy as np
+
+    from ov_plane_tpu_torch.models.manager import VioEngine
+    from ov_plane_tpu_torch.sim import simulator
+    from ov_plane_tpu_torch.utils.config import vision_config
+
+    cfg = vision_config()
+    truth = simulator.load_scene(simulator.VISION_SCENE_PATH, dtype=torch.float64, device="cpu")
+    run = VisionRun(cfg, truth, imu, torch.from_numpy(gt_bg0), torch.from_numpy(gt_ba0), None, sampler, wire)
+    eng = VioEngine.from_config(cfg, device="cpu")
+    drv, st, bank, fev = vision_driver(run, eng, gt_bg0.shape[0], "cpu", torch.float64, chain)
+    frames = torch.from_numpy(frames)
+    pulls, counters, ps, qs = [], [], [], []
+    for c in range(frames.shape[0] // chain):
+        if chain == 1:
+            st, bank, fev, out = drv.step_batch(st, bank, fev, frames[c], *_imu_window(run, c + 1))
+            ps.append(out.p[None])
+            qs.append(out.q[None])
+        else:
+            st, bank, fev, out = drv.step_batch_chunk(st, bank, fev, frames[c * chain:(c + 1) * chain],
+                                                      *_chunk_windows(run, c * chain + 1, chain))
+            ps.append(out.p)
+            qs.append(out.q)
+        if c > 0:
+            pulls.append(drv.last_pull.copy())
+            counters.append(drv.last_counters.copy())
+    drv.flush_stream()
+    drv.close()
+    pulls.append(drv.last_pull.copy())
+    counters.append(drv.last_counters.copy())
+    return dict(pulls=np.stack(pulls), counters=np.stack(counters), p=torch.cat(ps).transpose(0, 1).numpy(),
+                q=torch.cat(qs).transpose(0, 1).numpy())
+
+
+def hold_vision_to_cpu(tag, card_pulls, card_counters, p, q, ref: dict, seconds: float):
+    """Streams 0-1 of a vision run on the card against their CPU run (f64
+    filter): track ids and valid flags equal on ≥ 99 % of slot-frames, the
+    plane counters (inits, constraints, planes in the state) equal on every
+    step read, the pose within (1e-2 m, 1e-3); the share of steps on which
+    every counter is equal is printed. ``card_pulls`` [..., 2, cap+3, 8] and
+    ``card_counters`` [steps, 2, 9] as ``ref`` holds them; p, q [2, T, ...]."""
+    import numpy as np
+
+    card = card_pulls.reshape(-1, *card_pulls.shape[-3:])[:, :, :-3]
+    cpu = ref["pulls"].reshape(-1, *ref["pulls"].shape[-3:])[:, :, :-3]
+    same = (card[..., 0] == cpu[..., 0]) & (card[..., 3] == cpu[..., 3])
     frac = same.mean()
-    # (n_plane_init, plane constraint updates, planes in the state) per frame
-    plane_card, plane_cpu = cnt[:VISION_REF, :2, 0:3], np.stack(ccounters)[:, :, 0:3]
+    plane_card, plane_cpu = card_counters[..., 0:3], ref["counters"][..., 0:3]
     plane_same = bool((plane_card == plane_cpu).all())
-    dp = (p[:2, :VISION_REF].double().cpu() - torch.stack(cp, 1)).abs().max().item()
-    dq = (q[:2, :VISION_REF].double().cpu() - torch.stack(cq, 1)).abs().max().item()
-    print(f"{tag} card f32 vs CPU (frontend f32, filter f64; {time.time() - t:.1f} s on the CPU), 2 streams x "
-          f"{VISION_REF} frames: ids and valid equal on {int(same.sum())} of {same.size} slot-frames "
-          f"({100 * frac:.2f}%); plane counters (inits, constraints, planes) equal on "
-          f"{int((plane_card == plane_cpu).all(axis=(1, 2)).sum())} of {VISION_REF} frames (card sums "
-          f"{plane_card.sum(axis=(0, 1)).tolist()}, CPU {plane_cpu.sum(axis=(0, 1)).tolist()}); "
+    all_same = (card_counters == ref["counters"]).all(axis=(1, 2))
+    T = ref["p"].shape[1]
+    dp = float(np.abs(p[:, :T].double().cpu().numpy() - ref["p"]).max())
+    dq = float(np.abs(q[:, :T].double().cpu().numpy() - ref["q"]).max())
+    print(f"{tag} card f32 vs CPU (frontend f32, filter f64; {seconds:.1f} s in a worker), 2 streams x {T} "
+          f"frames: ids and valid equal on {int(same.sum())} of {same.size} slot-frames ({100 * frac:.2f}%); plane "
+          f"counters (inits, constraints, planes) equal on {int((plane_card == plane_cpu).all(axis=(1, 2)).sum())} "
+          f"of {len(plane_card)} steps read (card sums {plane_card.sum(axis=(0, 1)).tolist()}, CPU "
+          f"{plane_cpu.sum(axis=(0, 1)).tolist()}); all 9 counters equal on {int(all_same.sum())} of {len(all_same)}; "
           f"max|dp|={dp:.3e} m max|dq|={dq:.3e}")
     if not (frac >= 0.99 and plane_same and dp <= 1e-2 and dq <= 1e-3):
-        raise RuntimeError("the card's vision run disagrees with the CPU reference")
-    info = dict(stream_frames_per_s=BATCH * VISION_FRAMES / wall, wall_s=wall, n_frames=VISION_FRAMES,
-                run=run, snapshot=snapshot)
-    return VISION_FRAMES, launches, info
+        raise RuntimeError(f"{tag} the card's vision run disagrees with the CPU reference")
+    return frac, dp, dq
 
 
 def profile_vision(info: dict, n: int = PROFILE_FRAMES):
@@ -1210,16 +1317,16 @@ def drive_tabletop(refs: CpuRefs):
     # 42 on both); on the other, an f32 gate that f64 does not take is printed.
     sel = [0] + [int(b) for b in (cnt[:, :, 2].max(dim=1).values > 0).nonzero()[:, 0] if b > 0][:1]
     imu_t, imu_w, imu_a, cam_t = run.imu
-    job = refs.submit("tabletop", _tabletop_cpu_reference, torch.stack(frames).cpu().numpy(),
-                      (imu_t, imu_w[sel], imu_a[sel], cam_t), run.gt_bg0[sel].cpu().numpy(),
-                      run.gt_ba0[sel].cpu().numpy())
+    # One job per stream: the longest references, split so that they end with the others.
+    frames_host = torch.stack(frames).cpu().numpy()
+    jobs = [refs.submit(f"tabletop {b}", _tabletop_cpu_reference, frames_host, (imu_t, imu_w[[b]], imu_a[[b]], cam_t),
+                        run.gt_bg0[[b]].cpu().numpy(), run.gt_ba0[[b]].cpu().numpy()) for b in sel]
     info = dict(stream_frames_per_s=TABLETOP_BATCH * n_frames / wall, wall_s=wall, n_frames=n_frames, streams=sel)
 
     def finish():
-        cref = torch.from_numpy(job.result())
         same = []
         for j, b in enumerate(sel):
-            card_b, cpu_b = cnt[b], cref[j]
+            card_b, cpu_b = cnt[b], torch.from_numpy(jobs[j].result())[0]
             first = [int(c[:, 2].nonzero()[0]) + 1 if c[:, 2].any() else None for c in (card_b, cpu_b)]
             same.append(int((card_b == cpu_b).all(dim=1).sum()))
             print(f"{tag} stream {b}, card f32 vs CPU f64: first frame with a plane in the state {first[0]} vs "
@@ -1249,7 +1356,7 @@ REPLAY_PER_FRAME = {"gram_reduce": 0, "kalman_downdate": 21}
 REPLAY_POSE_LIMITS = (3e-6, 2e-6)
 
 
-def drive_replay():
+def drive_replay(refs: CpuRefs):
     """Phase 8: the dataset replay, the real suite's MS-PL variant at one
     stream (``scripts/run_euroc`` with ``--sim-calib --use-planes --max-slam
     15``, D = 156) on an ASL folder that the port's ``make_synth_asl`` writes
@@ -1263,100 +1370,121 @@ def drive_replay():
     import numpy as np
 
     from ov_plane_tpu_torch.ops import kernels
-    from ov_plane_tpu_torch.scripts import run_euroc
     from ov_plane_tpu_torch.scripts.make_synth_asl import write_asl
     from torch.profiler import ProfilerActivity, profile
 
     tag = "[replay]"
-    with tempfile.TemporaryDirectory(prefix="ovp_replay_") as tmp:
-        data = f"{tmp}/seq"
-        w = write_asl(data, scene="tabletop", frames=REPLAY_FRAMES, seed=SEED, device="cuda")
-        print(f"{tag} ASL folder: {w['frames']} frames (752x480 PNG) + {w['imu']} IMU samples written in "
-              f"{w['seconds']:.2f} s")
+    # The folder outlives the phase: its CPU run is queued on ``refs``.
+    tmp = tempfile.mkdtemp(prefix="ovp_replay_")
+    data = f"{tmp}/seq"
+    w = write_asl(data, scene="tabletop", frames=REPLAY_FRAMES, seed=SEED, device="cuda")
+    print(f"{tag} ASL folder: {w['frames']} frames (752x480 PNG) + {w['imu']} IMU samples written in "
+          f"{w['seconds']:.2f} s")
 
-        def run(mode, flags, device="cuda"):
-            files = {k: f"{tmp}/{mode}_{k}" for k in ("traj.txt", "timing.csv", "plane.csv", "map.npz")}
-            args = ["--data", data, "--sim-calib", "--use-planes", "--max-slam", "15", *flags,
-                    "--out", files["traj.txt"], "--timing", files["timing.csv"], "--plane-csv", files["plane.csv"],
-                    "--map-out", files["map.npz"], "--device", device, "--verbosity", "WARNING"]
-            kernels.reset_launch_counts()
-            t = time.time()
-            r = run_euroc.main(args)
-            r["seconds"] = time.time() - t
-            r["launches"] = {"gram_reduce": kernels.gram_reduce.launches,
-                             "kalman_downdate": kernels.kalman_downdate.launches}
-            r["files"] = files
-            return r
+    def run(mode, flags, device="cuda"):
+        kernels.reset_launch_counts()
+        t = time.time()
+        r = _replay_run(tmp, mode, flags, device)
+        r["seconds"] = time.time() - t
+        r["launches"] = {"gram_reduce": kernels.gram_reduce.launches,
+                         "kalman_downdate": kernels.kalman_downdate.launches}
+        return r
 
-        runs = {}
-        for mode, flags, n in (("host", [], REPLAY_HOST_FRAMES), ("fused", ["--fused"], REPLAY_FUSED_FRAMES),
-                               ("dynamic", ["--no-gt-init", "--f32"], REPLAY_DYN_FRAMES)):
-            r = runs[mode] = run(mode, [*flags, "--max-frames", str(n)])
-            n_done = r["n_done"]
-            sizes = {k: Path(v).stat().st_size for k, v in r["files"].items()}
-            with np.load(r["files"]["map.npz"]) as z:
-                n_map = int(z["points"].shape[0])
-            print(f"{tag} {mode}: init {r['init']} (first frame replayed {r['start_idx']}, init {r['init_seconds']:.2f} s);"
-                  f" {n_done} frames in {r['loop_seconds']:.2f} s = {n_done / r['loop_seconds']:.2f} frames/s; "
-                  f"host reads (synchronizations) per frame {r['host_reads'] / n_done:.2f}; launches {r['launches']}; "
-                  f"ATE posyaw {r['ate'][0]:.4f} m / {r['ate'][1]:.3f} deg; map {n_map} points "
-                  f"({r['map']['n_planes']} planes); files {sizes}; run {r['seconds']:.1f} s")
-            c = dict(zip(r["counter_names"], r["counters"].T))
-            print(f"{tag} {mode}: per frame n_msckf_used {c['n_msckf_used'].tolist()}")
-            print(f"{tag} {mode}: per frame n_slam {c['n_slam'].tolist()} n_planes {c['n_planes'].tolist()} "
-                  f"constraints {c['n_plane_constraints'].tolist()}")
-            if n_done != n or not (np.isfinite(r["p"]).all() and np.isfinite(r["q"]).all()):
-                raise RuntimeError(f"the {mode} replay stepped {n_done} of {n} frames or gave non-finite poses")
-            for k, per in REPLAY_PER_FRAME.items():
-                if r["launches"][k] != per * n_done:
-                    raise RuntimeError(f"{mode}: {k} launched {r['launches'][k]} times over {n_done} frames, "
-                                       f"not {per} per frame")
-            if r["ate"] is None or not r["ate"][0] < 0.5:
-                raise RuntimeError(f"{mode}: ATE posyaw {r['ate']} is not below 0.5 m")
-            if min(sizes.values()) == 0 or n_map == 0:
-                raise RuntimeError(f"{mode}: an output file is empty ({sizes}, map points {n_map})")
-            if mode == "host" and not (c["n_slam"].max() > 0 and c["n_planes"].max() > 0):
-                raise RuntimeError("no SLAM landmark or no plane entered the host path's state")
-        if runs["dynamic"]["init"] != "dynamic":
-            raise RuntimeError(f"the no-GT replay initialized by {runs['dynamic']['init']}, not dynamically")
+    runs = {}
+    for mode, flags, n in (("host", [], REPLAY_HOST_FRAMES), ("fused", ["--fused"], REPLAY_FUSED_FRAMES),
+                           ("dynamic", ["--no-gt-init", "--f32"], REPLAY_DYN_FRAMES)):
+        r = runs[mode] = run(mode, [*flags, "--max-frames", str(n)])
+        n_done = r["n_done"]
+        sizes = {k: Path(v).stat().st_size for k, v in r["files"].items()}
+        with np.load(r["files"]["map.npz"]) as z:
+            n_map = int(z["points"].shape[0])
+        print(f"{tag} {mode}: init {r['init']} (first frame replayed {r['start_idx']}, init {r['init_seconds']:.2f} s);"
+              f" {n_done} frames in {r['loop_seconds']:.2f} s = {n_done / r['loop_seconds']:.2f} frames/s; "
+              f"host reads (synchronizations) per frame {r['host_reads'] / n_done:.2f}; launches {r['launches']}; "
+              f"ATE posyaw {r['ate'][0]:.4f} m / {r['ate'][1]:.3f} deg; map {n_map} points "
+              f"({r['map']['n_planes']} planes); files {sizes}; run {r['seconds']:.1f} s")
+        c = dict(zip(r["counter_names"], r["counters"].T))
+        print(f"{tag} {mode}: per frame n_msckf_used {c['n_msckf_used'].tolist()}")
+        print(f"{tag} {mode}: per frame n_slam {c['n_slam'].tolist()} n_planes {c['n_planes'].tolist()} "
+              f"constraints {c['n_plane_constraints'].tolist()}")
+        if n_done != n or not (np.isfinite(r["p"]).all() and np.isfinite(r["q"]).all()):
+            raise RuntimeError(f"the {mode} replay stepped {n_done} of {n} frames or gave non-finite poses")
+        for k, per in REPLAY_PER_FRAME.items():
+            if r["launches"][k] != per * n_done:
+                raise RuntimeError(f"{mode}: {k} launched {r['launches'][k]} times over {n_done} frames, "
+                                   f"not {per} per frame")
+        if r["ate"] is None or not r["ate"][0] < 0.5:
+            raise RuntimeError(f"{mode}: ATE posyaw {r['ate']} is not below 0.5 m")
+        if min(sizes.values()) == 0 or n_map == 0:
+            raise RuntimeError(f"{mode}: an output file is empty ({sizes}, map points {n_map})")
+        if mode == "host" and not (c["n_slam"].max() > 0 and c["n_planes"].max() > 0):
+            raise RuntimeError("no SLAM landmark or no plane entered the host path's state")
+    if runs["dynamic"]["init"] != "dynamic":
+        raise RuntimeError(f"the no-GT replay initialized by {runs['dynamic']['init']}, not dynamically")
 
-        # The host path's first frames against the port's CPU run (f64 both).
-        ref = run("cpu", ["--max-frames", str(REPLAY_REF)], device="cpu")
-        host = runs["host"]
+    # The host path's first frames through the port's CPU run (f64 both), queued.
+    job = refs.submit("replay", _replay_cpu_reference, tmp)
+    host = runs["host"]
+
+    # Kernels and device time per frame of the host path's replay: a
+    # profiled run of 1 frame after the GT init.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pr = run("profile_host", ["--max-frames", "1"])
+        torch.cuda.synchronize()
+    ev = [e for e in _raw_events(prof) if e[1]]
+    kernels_per_frame = {"host": len(ev) / pr["n_done"]}
+    print(f"{tag} host replay, profiled run of {pr['n_done']} frames (after a GT init): "
+          f"{kernels_per_frame['host']:.0f} kernels per frame, device busy "
+          f"{sum(e[3] for e in ev) / 1e6 / pr['n_done']:.2f} ms per frame, wall "
+          f"{1e3 * pr['loop_seconds'] / pr['n_done']:.1f} ms per frame (profiled)")
+    info = dict(stream_frames_per_s=host["n_done"] / host["loop_seconds"], modes={
+        m: dict(frames=r["n_done"], frames_per_s=r["n_done"] / r["loop_seconds"],
+                host_reads_per_frame=r["host_reads"] / r["n_done"], init=r["init"], start_idx=r["start_idx"],
+                ate=r["ate"]) for m, r in runs.items()},
+        kernels_per_frame=kernels_per_frame)
+
+    def finish():
+        import shutil
+
+        ref = job.result()
+        shutil.rmtree(tmp, ignore_errors=True)
         dp = float(np.abs(host["p"][:REPLAY_REF] - ref["p"]).max())
         dq = float(np.abs(host["q"][:REPLAY_REF] - ref["q"]).max())
         same = (host["counters"][:REPLAY_REF] == ref["counters"]).all(axis=1)
-        print(f"{tag} host path card f64 vs CPU f64 ({ref['seconds']:.1f} s on the CPU), {REPLAY_REF} frames: "
+        print(f"{tag} host path card f64 vs CPU f64 ({job.seconds:.1f} s in a worker), {REPLAY_REF} frames: "
               f"max|dp|={dp:.3e} m max|dq|={dq:.3e}; every counter equal on {int(same.sum())} of {REPLAY_REF} frames")
         if not same.all():
             raise RuntimeError(f"per-frame counters differ from the CPU run's: card {host['counters'][:REPLAY_REF]} "
                                f"CPU {ref['counters']}")
         if not (dp < REPLAY_POSE_LIMITS[0] and dq < REPLAY_POSE_LIMITS[1]):
             raise RuntimeError(f"the card's replay disagrees with the CPU run (limits {REPLAY_POSE_LIMITS})")
+        info["card_vs_cpu"] = (dp, dq)
 
-        # Kernels and device time per frame of each mode's replay: profiled
-        # runs of 2 frames after the GT init (the dynamic mode replays the
-        # host path in f32).
-        kernels_per_frame = {}
-        for mode, flags in (("host", []), ("fused", ["--fused"]), ("dynamic", ["--f32"])):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                pr = run(f"profile_{mode}", [*flags, "--max-frames", "2"])
-                torch.cuda.synchronize()
-            ev = [e for e in _raw_events(prof) if e[1]]
-            kernels_per_frame[mode] = len(ev) / pr["n_done"]
-            print(f"{tag} {mode} replay, profiled run of {pr['n_done']} frames (after a GT init): "
-                  f"{kernels_per_frame[mode]:.0f} kernels per frame, device busy "
-                  f"{sum(e[3] for e in ev) / 1e6 / pr['n_done']:.2f} ms per frame, wall "
-                  f"{1e3 * pr['loop_seconds'] / pr['n_done']:.1f} ms per frame (profiled)")
-    info = dict(stream_frames_per_s=host["n_done"] / host["loop_seconds"], modes={
-        m: dict(frames=r["n_done"], frames_per_s=r["n_done"] / r["loop_seconds"],
-                host_reads_per_frame=r["host_reads"] / r["n_done"], init=r["init"], start_idx=r["start_idx"],
-                ate=r["ate"]) for m, r in runs.items()},
-        kernels_per_frame=kernels_per_frame, card_vs_cpu=(dp, dq))
+    info["finish"] = finish
     return host["n_done"], host["launches"], info
 
 
+def _replay_run(tmp: str, mode: str, flags, device: str) -> dict:
+    """``run_euroc`` on the ASL folder ``tmp/seq`` with the replay phase's flags, its files under ``tmp``."""
+    from ov_plane_tpu_torch.scripts import run_euroc
+
+    files = {k: f"{tmp}/{mode}_{k}" for k in ("traj.txt", "timing.csv", "plane.csv", "map.npz")}
+    args = ["--data", f"{tmp}/seq", "--sim-calib", "--use-planes", "--max-slam", "15", *flags,
+            "--out", files["traj.txt"], "--timing", files["timing.csv"], "--plane-csv", files["plane.csv"],
+            "--map-out", files["map.npz"], "--device", device, "--verbosity", "WARNING"]
+    r = run_euroc.main(args)
+    r["files"] = files
+    return r
+
+
+def _replay_cpu_reference(tmp: str) -> dict:
+    """The host path's first REPLAY_REF frames through the port on the CPU, in a ``CpuRefs`` worker."""
+    r = _replay_run(tmp, "cpu", ["--max-frames", str(REPLAY_REF)], "cpu")
+    return {k: r[k] for k in ("p", "q", "counters")}
+
+
+SWEEP_FRAMES = 24          # the first 24 of the scan's 47 frames (CP planes and SLAM landmarks from frame 20)
 SWEEP_REF_FRAMES = 20      # frames of streams 0-1 against the port's CPU f64 run
 SWEEP_PER_FRAME = {"M-PT": {"gram_reduce": 1, "kalman_downdate": 1},     # classic
                    "MS-PT": {"gram_reduce": 1, "kalman_downdate": 10},   # classic, SLAM update, 8 SLAM inits
@@ -1441,7 +1569,7 @@ def drive_sweep(refs: CpuRefs):
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             t = time.time()
-            run = run_sweep.run_variant(vcfg, seeds, "cuda", sim=sim)
+            run = run_sweep.run_variant(vcfg, seeds, "cuda", sim=sim, n_frames=SWEEP_FRAMES)
             torch.cuda.synchronize()
             wall = time.time() - t
             launches = {"gram_reduce": kernels.gram_reduce.launches,
@@ -1484,7 +1612,7 @@ def drive_sweep(refs: CpuRefs):
                           truths[use_planes].gt_p[1:F + 1].double())
             stats = {}
             for k in SWEEP_METRICS:
-                port, jax_ref = m[k].cpu().numpy(), ref[f"{name}/{k}"]
+                port, jax_ref = m[k].cpu().numpy(), ref[f"{name}/f{F}/{k}"]
                 se = math.sqrt(port.var(ddof=1) / port.size + jax_ref.var(ddof=1) / jax_ref.size)
                 z = abs(port.mean() - jax_ref.mean()) / se if se > 0 else 0.0
                 stats[k] = dict(port=float(port.mean()), jax=float(jax_ref.mean()), se=se, z=z)
@@ -1556,7 +1684,7 @@ def drive_sweep(refs: CpuRefs):
 # held to 0.8x at 60 frames (|dt| to 0.5x; 0.016 there).
 CAL_FRAMES = 60
 CAL_INTR_RATIO, CAL_DT_RATIO = 0.8, 0.5
-MC_SEEDS, MC_FRAMES = 8, 48   # the vision Monte-Carlo's seeds and frames per arm
+MC_SEEDS, MC_FRAMES = 8, 24   # the vision Monte-Carlo's seeds and frames per arm
 CAL_DT = 0.015          # the scene's camera-IMU offset (tests/test_calib_dt.py)
 CAL_REF = 12            # frames of streams 0-1 against the port's CPU f64 run
 CAL_PER_FRAME = {"gram_reduce": 1, "kalman_downdate": 1}      # the classic update
@@ -1570,7 +1698,7 @@ ZUPT_PER_FRAME = {"standard": {"gram_reduce": 0, "kalman_downdate": 2},
 RANSAC_FRAMES = 24      # the M-PL scene's first plane enters the state at frame 20
 MC_ARGS = ["--scene", "tabletop", "--densities", "sparse", "--seeds", str(MC_SEEDS), "--max-frames",
            str(MC_FRAMES)]
-MC_REF = 12             # frames of the ON arm's streams 0-1 against the port's CPU run
+MC_REF = 8              # frames of the ON arm's streams 0-1 against the port's CPU run
 MC_PER_FRAME = {"ON": {"gram_reduce": 1, "kalman_downdate": 12}, "OFF": {"gram_reduce": 1, "kalman_downdate": 1}}
 
 
@@ -2091,6 +2219,446 @@ def drive_mc_vision(refs: CpuRefs):
     return n, launches, info
 
 
+CHAIN_K = 4             # frames per chunk of the chained dispatch (phase 16)
+CHAIN_CHUNKS = 4        # timed chunks, after one warm-up chunk
+PROFILED_FRAMES = 8     # frames of the staged profiler (phase 18)
+SHARD_FRAMES = 16       # frames of the sharded point replay (phase 19a)
+SHARD_VISION_STREAMS, SHARD_VISION_FRAMES = 4, 8   # the dp-sharded vision run (phase 19b): 2 ranks x 2 streams
+SHARD_KNN_POINTS, SHARD_KNN_K = 4096, 8            # sharded_knn (phase 19c): points over 2 ranks, neighbours
+SHARD_WORLD, SHARD_TIMEOUT = 2, 600                # ranks on the one card (gloo), seconds each may take
+SHARD_POSE_LIMIT = 1e-8                            # m: the sharded update against the unsharded one (f64)
+
+
+def drive_chain(vision: dict, refs: CpuRefs):
+    """Phase 16: the vision path in chunks of CHAIN_K frames
+    (``FusedVisionDriver(chain=K)``, ``step_batch_chunk``) at full width on
+    the vision phase's staged frames, from a fresh state: one warm-up chunk,
+    then CHAIN_CHUNKS timed chunks. Every chunk is checked for host
+    synchronizations (none but the pull's event wait), one pull read (none
+    in the first) and K times the per-frame launches; stream-frames/s at
+    K = 1 (the vision phase) and K = CHAIN_K and the ``last_times``
+    decomposition are printed; streams 0-1 are held to their CPU f64 chained
+    run (queued). Returns (frames, launches, info) of the timed chunks."""
+    import numpy as np
+
+    from ov_plane_tpu_torch.frontend.fused import FusedVisionDriver
+    from ov_plane_tpu_torch.models.manager import VioEngine
+    from ov_plane_tpu_torch.ops import kernels
+
+    tag = "[chain]"
+    run = vision["run"]
+    K, n_chunks = CHAIN_K, 1 + CHAIN_CHUNKS
+    eng = VioEngine.from_config(run.cfg, device="cuda")
+    drv, st, bank, fev = vision_driver(run, eng, BATCH, "cuda", torch.float32, chain=K)
+    chunks = [torch.stack(run.ring[c * K:(c + 1) * K]) for c in range(n_chunks)]
+    wins = [_chunk_windows(run, c * K + 1, K) for c in range(n_chunks)]
+    job = refs.submit("chain", _vision_cpu_reference, torch.stack(run.ring[:n_chunks * K])[:, :2].cpu().numpy(),
+                      _host_imu(run, slice(0, 2)), run.gt_bg0[:2].cpu().numpy(), run.gt_ba0[:2].cpu().numpy(),
+                      run.sampler, run.wire, K)
+    syncs, pulls, per_chunk, times, ps, qs, pulls_ref, counters = [], [], [], [], [], [], [], []
+    torch.cuda.synchronize()
+    for c in range(n_chunks):
+        if c == 1:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t = time.time()
+        n0, g0, d0 = drv.n_pulls, kernels.gram_reduce.launches, kernels.kalman_downdate.launches
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st, bank, fev, outs = drv.step_batch_chunk(st, bank, fev, chunks[c], *wins[c])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs.append(sorted({str(w.message).splitlines()[0] for w in caught
+                             if "synchronizing CUDA operation" in str(w.message)}))
+        pulls.append(drv.n_pulls - n0)
+        per_chunk.append({"gram_reduce": kernels.gram_reduce.launches - g0,
+                          "kalman_downdate": kernels.kalman_downdate.launches - d0})
+        ps.append(outs.p)
+        qs.append(outs.q)
+        if c > 0:
+            times.append(dict(drv.last_times))
+            pulls_ref.append(drv.last_pull[:, :2].copy())
+            counters.append(drv.last_counters[:2].copy())
+    drv.flush_stream()
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    pulls_ref.append(drv.last_pull[:, :2].copy())
+    counters.append(drv.last_counters[:2].copy())
+    launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
+    n_frames = K * CHAIN_CHUNKS
+    # One more chunk under torch.profiler: kernels and device time per frame at K = CHAIN_K.
+    from torch.profiler import ProfilerActivity, profile
+
+    i0 = n_chunks * K + 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        drv.step_batch_chunk(st, bank, fev, torch.stack(run.ring[i0 - 1:i0 - 1 + K]), *_chunk_windows(run, i0, K))
+        torch.cuda.synchronize()
+    drv.flush_stream()
+    drv.close()
+    ev = [e for e in _raw_events(prof) if e[1]]
+    busy_ms = sum(e[3] for e in ev) / 1e6 / K
+    print(f"[profile chain] frames {i0}-{i0 + K - 1}: {len(ev) / K:.0f} kernels per frame, device busy {busy_ms:.2f} "
+          f"ms per frame; timed frame {1e3 * wall / n_frames:.2f} ms -> device idle "
+          f"{100 * (1 - busy_ms / (1e3 * wall / n_frames)):.1f}%")
+    rate = BATCH * n_frames / wall
+    expect = {k: K * n for k, n in VISION_PER_FRAME.items()}
+    # K = 1 over the same frames: the vision phase's host time from step K + 1 to step K·n_chunks + 1.
+    stamps = vision["stamps"]
+    k1 = BATCH * n_frames / (stamps[K * n_chunks] - stamps[K])
+    print(f"{tag} K={K}: {BATCH}x{n_frames} stream-frames (frames {K + 1}-{K * n_chunks}) in {wall:.3f} s: "
+          f"{rate:.2f} stream-frames/s; K=1 over the same frames (the vision phase's steps): {k1:.2f}, over its "
+          f"{VISION_FRAMES} frames: {vision['stream_frames_per_s']:.2f} stream-frames/s")
+    print(f"{tag} per chunk: launches {per_chunk}; pulls read {pulls}; host synchronizations other than the "
+          f"pull's event wait {[len(x) for x in syncs]} {sum(syncs, [])[:5]}")
+    mean_t = {k: 1e3 * statistics.mean(t_[k] for t_ in times) for k in FusedVisionDriver.TIME_KEYS}
+    print(f"{tag} last_times, ms per chunk of {K} frames (mean of {len(times)}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in mean_t.items()))
+    if any(syncs) or pulls != [0] + [1] * CHAIN_CHUNKS or any(pc != expect for pc in per_chunk):
+        raise RuntimeError(f"{tag} a chunk synchronized with the host, read other than one pull, or launched "
+                           f"other than {expect}")
+    if launches != {k: CHAIN_CHUNKS * n for k, n in expect.items()}:
+        raise RuntimeError(f"{tag} launches {launches} over {CHAIN_CHUNKS} chunks")
+    p, q = torch.cat(ps).transpose(0, 1), torch.cat(qs).transpose(0, 1)          # [B, T, ...]
+    if not (torch.isfinite(p).all() and torch.isfinite(q).all() and torch.isfinite(st.cov).all()):
+        raise RuntimeError(f"{tag} non-finite state")
+    info = dict(stream_frames_per_s=rate, wall_s=wall, n_frames=n_frames, last_times_ms=mean_t,
+                k1_stream_frames_per_s=k1)
+
+    def finish():
+        hold_vision_to_cpu(tag, np.stack(pulls_ref), np.stack(counters), p[:2], q[:2], job.result(), job.seconds)
+
+    info["finish"] = finish
+    return n_frames, launches, info
+
+
+def drive_batched_replay(point: dict):
+    """Phase 17: ``parallel.replay.batched_replay`` (one rank, no mesh) on the
+    point path at B = 64 in f32 over the point phase's frames from a fresh
+    state: every stream's poses bitwise those of the point phase's
+    ``run_sequence`` on the same inputs, the fleet RMSE equal to the one
+    recomputed on the host from the outputs, the exact launch counts."""
+    from ov_plane_tpu_torch.ops import kernels
+    from ov_plane_tpu_torch.parallel.replay import batched_replay
+
+    tag = "[batched-replay]"
+    eng, cfg, sim, n, ref = point["eng"], point["cfg"], point["sim"], point["n_frames"], point["outs"]
+    state, bank = _fresh(eng, cfg, sim, BATCH, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.time()
+    outs, rmse = batched_replay(eng, state, bank, sim, cfg.tpu.max_imu_per_frame, n_frames=n)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
+    err = outs.p.double().cpu() - sim.gt_p[1:n + 1].double().cpu()
+    host = torch.sqrt((err * err).sum(dim=-1).mean()).item()
+    same = torch.equal(outs.p, ref.p) and torch.equal(outs.q, ref.q)
+    diff = max((outs.p - ref.p).abs().max().item(), (outs.q - ref.q).abs().max().item())
+    print(f"{tag} {BATCH}x{n} stream-frames in {wall:.3f} s ({BATCH * n / wall:.1f} stream-frames/s); launches "
+          f"{launches}; poses bitwise those of run_sequence: {same} (max diff {diff:.3e}); fleet RMSE "
+          f"{rmse.item():.9f} m, host recomputation {host:.9f} m")
+    if launches != {k: v * n for k, v in PATHS[0].per_frame.items()}:
+        raise RuntimeError(f"{tag} launches {launches}, not {PATHS[0].per_frame} per frame")
+    if not same:
+        raise RuntimeError(f"{tag} the poses differ from run_sequence's on the same inputs")
+    if not abs(rmse.item() - host) <= 1e-12 * host:
+        raise RuntimeError(f"{tag} the fleet RMSE {rmse.item()} differs from the host's {host}")
+    return n, launches, dict(stream_frames_per_s=BATCH * n / wall, wall_s=wall, fleet_rmse=rmse.item())
+
+
+def drive_profiled(point: dict):
+    """Phase 18: ``utils.profiling.run_sequence_profiled`` on the point path
+    (B = 64, f32, fresh state, PROFILED_FRAMES frames), each stage ended by
+    ``torch.cuda.synchronize()``: the median ms per stage printed, every
+    row's stages adding up to its total, the exact launch counts."""
+    import numpy as np
+
+    from ov_plane_tpu_torch.eval.io import TIMING_COLUMNS
+    from ov_plane_tpu_torch.ops import kernels
+    from ov_plane_tpu_torch.utils.profiling import run_sequence_profiled
+
+    tag = "[profiled]"
+    eng, cfg, sim = point["eng"], point["cfg"], point["sim"]
+    state, bank = _fresh(eng, cfg, sim, BATCH, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.time()
+    rec = run_sequence_profiled(eng, state, bank, sim, cfg.tpu.max_imu_per_frame, max_frames=PROFILED_FRAMES)
+    wall = time.time() - t
+    launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
+    rows = np.asarray(rec.rows)
+    stages = ("propagation", "tracking", "msckf update", "re-tri & marg")
+    parts = sum(rows[:, TIMING_COLUMNS.index(c)] for c in stages)
+    total = rows[:, TIMING_COLUMNS.index("total")]
+    med = {c: 1e3 * float(np.median(rows[:, TIMING_COLUMNS.index(c)])) for c in stages + ("total",)}
+    print(f"{tag} {len(rows)} frames x {BATCH} streams, median ms per stage: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+          + f"; largest |sum of stages - total| {np.abs(parts - total).max():.3e} s; launches {launches}")
+    if len(rows) != PROFILED_FRAMES or not np.abs(parts - total).max() <= 1e-9 or not (total > 0).all():
+        raise RuntimeError(f"{tag} the staged rows do not add up to their totals")
+    if launches != {k: v * PROFILED_FRAMES for k, v in PATHS[0].per_frame.items()}:
+        raise RuntimeError(f"{tag} launches {launches}, not {PATHS[0].per_frame} per frame")
+    return PROFILED_FRAMES, launches, dict(stream_frames_per_s=BATCH * PROFILED_FRAMES / wall, wall_s=wall,
+                                           median_ms=med)
+
+
+def _shard_point_inputs(shard_axis: str = ""):
+    """The point path's engine, noisy scene (B = 64, f64) and a fresh f64
+    state, the same bits in every process (the noise from a seeded card
+    generator); ``shard_axis`` shares the classic update's rows."""
+    from ov_plane_tpu_torch.models.manager import VioEngine
+    from ov_plane_tpu_torch.sim import simulator
+    from ov_plane_tpu_torch.utils.config import slice_config
+
+    cfg = slice_config()
+    cfg.tpu.shard_axis = shard_axis
+    truth = simulator.load_scene(simulator.SCENE_PATH, dtype=torch.float64, device="cuda")
+    sim = simulator.apply_noise(truth, simulator.noise_params(cfg), BATCH,
+                                torch.Generator(device="cuda").manual_seed(SEED))
+    eng = VioEngine.from_config(cfg, device="cuda")
+    return (cfg, sim, eng) + _fresh(eng, cfg, sim, BATCH, "cuda", torch.float64)
+
+
+def _shard_vision_run():
+    """The dp-sharded vision run's inputs, the same bits in every process:
+    the vision scene's first SHARD_VISION_FRAMES frames of
+    SHARD_VISION_STREAMS streams, rendered on the card with each stream's
+    pixel noise, on the 8-bit lattice; the wire and sampler resolve as the
+    vision phase's."""
+    from ov_plane_tpu_torch.frontend.synthetic import render_frame_textured
+    from ov_plane_tpu_torch.ops.quat import quat_2_rot
+    from ov_plane_tpu_torch.sim import simulator
+    from ov_plane_tpu_torch.utils.config import vision_config
+
+    cfg, b = vision_config(), SHARD_VISION_STREAMS
+    truth = simulator.load_scene(simulator.VISION_SCENE_PATH, dtype=torch.float64, device="cuda")
+    sim = simulator.apply_noise(truth, simulator.noise_params(cfg), b, torch.Generator(device="cuda").manual_seed(SEED))
+    w, h = cfg.cam_wh
+    noise = 0.01 * torch.randn(b, h, w, generator=torch.Generator(device="cuda").manual_seed(SEED + 2), device="cuda")
+    R_ItoC = quat_2_rot(torch.tensor(cfg.cam_extrinsics[0:4], dtype=torch.float64))
+    p_IinC = torch.tensor(cfg.cam_extrinsics[4:7], dtype=torch.float64)
+    frames = []
+    for i in range(1, SHARD_VISION_FRAMES + 1):
+        img = render_frame_textured(truth.plane_corners, truth.plane_normal, truth.plane_d, quat_2_rot(truth.gt_q[i]),
+                                    truth.gt_p[i], R_ItoC, p_IinC, cfg.cam_intrinsics, tuple(cfg.cam_wh))
+        frames.append(torch.round(torch.clamp(img[None] + noise, 0.0, 1.0) * 255.0) * (1.0 / 255.0))
+    imu = (truth.imu_t.cpu().numpy(), sim.imu_w.cpu().numpy(), sim.imu_a.cpu().numpy(), truth.cam_t_imu.cpu().numpy())
+    return VisionRun(cfg, truth, imu, sim.gt_bg_cam[:, 0], sim.gt_ba_cam[:, 0], frames, "auto", "auto")
+
+
+def _shard_vision(run: VisionRun, eng, mesh=None) -> dict:
+    """The vision run through ``step_batch`` of the global SHARD_VISION_STREAMS
+    streams (this rank's slab under ``mesh``): per frame p, q and the pull
+    read; the launches."""
+    import numpy as np
+
+    from ov_plane_tpu_torch.frontend.fused import FusedVisionDriver
+    from ov_plane_tpu_torch.models.feature_bank import FeatureBank
+    from ov_plane_tpu_torch.models.manager import init_state_with_gt
+    from ov_plane_tpu_torch.ops import kernels
+
+    drv = FusedVisionDriver(run.cfg, eng, SHARD_VISION_STREAMS, sampler=run.sampler, img_wire=run.wire, mesh=mesh)
+    sl = slice(drv.batch_lo, drv.batch_lo + drv.B)
+    b, tr = drv.B, run.truth
+    st = init_state_with_gt(eng, run.cfg, t0=tr.cam_t_imu[0].expand(b), q0=tr.gt_q[0].expand(b, 4),
+                            p0=tr.gt_p[0].expand(b, 3), v0=tr.gt_v[0].expand(b, 3), bg0=run.gt_bg0[sl],
+                            ba0=run.gt_ba0[sl], dtype=torch.float32, device="cuda")
+    bank = FeatureBank.create(run.cfg.tpu.max_features, eng.layout.max_clones, b, torch.float32, "cuda")
+    fev = drv.init_frontend()
+    kernels.reset_launch_counts()
+    ps, qs, pulls = [], [], []
+    for i in range(1, SHARD_VISION_FRAMES + 1):
+        st, bank, fev, out = drv.step_batch(st, bank, fev, drv.stage_image(run.ring[i - 1][sl]),
+                                            *_imu_window(run, i, sl))
+        ps.append(out.p)
+        qs.append(out.q)
+        if i > 1:
+            pulls.append(drv.last_pull.copy())
+    drv.flush_stream()
+    pulls.append(drv.last_pull.copy())
+    torch.cuda.synchronize()
+    return dict(p=torch.stack(ps, 1).double().cpu().numpy(), q=torch.stack(qs, 1).double().cpu().numpy(),
+                pulls=np.stack(pulls), counters=drv.last_counters.copy(), batch_lo=drv.batch_lo,
+                launches=np.array([kernels.gram_reduce.launches, kernels.kalman_downdate.launches]))
+
+
+def _knn_inputs():
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    pts = 2.0 * torch.randn(SHARD_KNN_POINTS, 3, generator=g, device="cuda", dtype=torch.float64)
+    active = torch.rand(SHARD_KNN_POINTS, generator=g, device="cuda") > 0.1
+    return pts, active, torch.randn(64, 3, generator=g, device="cuda", dtype=torch.float64)
+
+
+def _sharded_worker(rank: int, world: int, port: int, out_path: str):
+    """One rank of phase 19 on the card (gloo over CUDA tensors): (a) the
+    point replay with the classic update's rows over 'sp', (b) the vision
+    driver with its streams over 'dp', (c) ``sharded_knn``."""
+    import numpy as np
+
+    from ov_plane_tpu_torch.frontend.map_blocks import sharded_knn
+    from ov_plane_tpu_torch.models.manager import VioEngine, run_sequence
+    from ov_plane_tpu_torch.ops import kernels
+    from ov_plane_tpu_torch.parallel import distributed
+
+    torch.cuda.set_device(0)
+    distributed.init_process("gloo", f"tcp://127.0.0.1:{port}", world, rank, timeout_s=SHARD_TIMEOUT)
+    try:
+        res = {}
+        sp = distributed.global_mesh(("dp", "sp"), shape=(1, world))
+        cfg, sim, eng, state, bank = _shard_point_inputs("sp")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.time()
+        state, bank, outs = run_sequence(eng, state, bank, sim, imu_window=cfg.tpu.max_imu_per_frame,
+                                         n_frames=SHARD_FRAMES)
+        torch.cuda.synchronize()
+        res["a_wall"] = time.time() - t
+        res["a_launches"] = np.array([kernels.gram_reduce.launches, kernels.kalman_downdate.launches])
+        res.update({f"a_out_{k}": v.cpu().numpy() for k, v in outs._asdict().items()})
+        res.update({f"a_state_{k}": v.cpu().numpy() for k, v in state.tensors().items()})
+
+        dp = distributed.global_mesh(("dp",))
+        run = _shard_vision_run()
+        t = time.time()
+        res.update({f"b_{k}": v for k, v in _shard_vision(run, VioEngine.from_config(run.cfg, device="cuda"),
+                                                          dp).items()})
+        res["b_wall"] = time.time() - t
+
+        pts, active, q = _knn_inputs()
+        sl = distributed.axis_slab(sp, "sp", SHARD_KNN_POINTS)
+        d, idx = sharded_knn(pts[sl], active[sl], q, SHARD_KNN_K, sp.get_group("sp"))
+        res.update(c_d=d.cpu().numpy(), c_idx=idx.cpu().numpy())
+        np.savez(out_path, **res)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def drive_sharded():
+    """Phase 19: two spawned processes on the one card, joined by gloo (NCCL
+    refuses two ranks on one device; this PyTorch's gloo takes CUDA tensors
+    in all_reduce, all_gather, all_gather_into_tensor, broadcast,
+    reduce_scatter_tensor and barrier), each with a time limit of
+    SHARD_TIMEOUT s. (a) The point path (B = 64, f64) with
+    ``tpu.shard_axis = "sp"`` over SHARD_FRAMES frames: within
+    SHARD_POSE_LIMIT m of the unsharded run on the card, every counter
+    equal, both ranks' states bitwise equal, the per-rank gram (B, 660, 93)
+    launched by the hand-written kernel once per frame. (b) The vision path
+    dp-sharded at 2 ranks × 2 streams against 4 streams in one process:
+    poses within the vision path's limits (1e-2 m, 1e-3), the share of equal
+    track ids and counters printed. (c) ``sharded_knn`` against ``knn`` on
+    one device. Returns {"sharded": (frames, launches, info), "sharded-dp": ...}."""
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    from ov_plane_tpu_torch.frontend.map_blocks import MapBlocks, knn
+    from ov_plane_tpu_torch.models.manager import VioEngine, run_sequence
+
+    tag = "[sharded]"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="ovp_sharded_")
+    outs = [f"{tmp}/rank{r}.npz" for r in range(SHARD_WORLD)]
+    t = time.time()
+    procs = [ctx.Process(target=_sharded_worker, args=(r, SHARD_WORLD, port, outs[r])) for r in range(SHARD_WORLD)]
+    for proc in procs:
+        proc.start()
+    try:
+        # The unsharded references in this process while the ranks run.
+        cfg, sim, eng, state, bank = _shard_point_inputs()
+        t_ref = time.time()
+        _, _, ref = run_sequence(eng, state, bank, sim, imu_window=cfg.tpu.max_imu_per_frame, n_frames=SHARD_FRAMES)
+        torch.cuda.synchronize()
+        ref_wall = time.time() - t_ref
+        vrun = _shard_vision_run()
+        one = _shard_vision(vrun, VioEngine.from_config(vrun.cfg, device="cuda"))
+        pts, active, q = _knn_inputs()
+        m = MapBlocks.create(SHARD_KNN_POINTS, dtype=torch.float64, device="cuda")
+        m.points, m.plane_id = pts, torch.where(active, 0, -1).to(torch.int32)
+        d1, i1 = knn(m, q, SHARD_KNN_K)
+        for proc in procs:
+            proc.join(timeout=max(1.0, SHARD_TIMEOUT - (time.time() - t)))
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    if any(proc.exitcode != 0 for proc in procs):
+        raise RuntimeError(f"{tag} a rank failed or ran past {SHARD_TIMEOUT} s: exit codes "
+                           f"{[proc.exitcode for proc in procs]}")
+    ranks = []
+    for o in outs:
+        with np.load(o) as z:
+            ranks.append({k: z[k] for k in z.files})
+    print(f"{tag} {SHARD_WORLD} ranks on one card (gloo) finished in {time.time() - t:.1f} s")
+
+    # (a) the sharded classic update.
+    p_ref = ref.p.cpu().numpy()
+    dps = [float(np.abs(r["a_out_p"] - p_ref).max()) for r in ranks]
+    counters_equal = all(np.array_equal(r["a_out_n_msckf_used"], ref.n_msckf_used.cpu().numpy()) for r in ranks)
+    keys = [k for k in ranks[0] if k.startswith(("a_out_", "a_state_"))]
+    differ = [k for k in keys if not np.array_equal(ranks[0][k], ranks[1][k])]
+    la = [r["a_launches"].tolist() for r in ranks]
+    print(f"{tag} (a) point path, B={BATCH}, f64, rows over 'sp': max|dp| against the unsharded run "
+          f"{['%.3e' % d for d in dps]} m (limit {SHARD_POSE_LIMIT}); n_msckf_used equal: {counters_equal}; ranks' "
+          f"states and outputs bitwise equal: {not differ} {differ[:3]}; launches per rank (gram, downdate) {la}; "
+          f"{SHARD_FRAMES} frames in {[round(float(r['a_wall']), 2) for r in ranks]} s per rank, unsharded "
+          f"{ref_wall:.2f} s")
+    if not (max(dps) <= SHARD_POSE_LIMIT and counters_equal and not differ):
+        raise RuntimeError(f"{tag} the sharded update departs from the unsharded one, or the ranks part")
+    if any(x != [SHARD_FRAMES, SHARD_FRAMES] for x in la):
+        raise RuntimeError(f"{tag} (a) launches {la}, not one gram and one downdate per frame")
+
+    # (b) the dp-sharded vision driver against one process.
+    p_dist = np.concatenate([r["b_p"] for r in ranks])
+    q_dist = np.concatenate([r["b_q"] for r in ranks])
+    pulls = np.concatenate([r["b_pulls"] for r in ranks], axis=1)[:, :, :-3]
+    cnt = np.concatenate([r["b_counters"] for r in ranks])
+    same = (pulls[..., 0] == one["pulls"][:, :, :-3, 0]) & (pulls[..., 3] == one["pulls"][:, :, :-3, 3])
+    dp_b, dq_b = float(np.abs(p_dist - one["p"]).max()), float(np.abs(q_dist - one["q"]).max())
+    lb = [r["b_launches"].tolist() for r in ranks]
+    expect = [VISION_PER_FRAME[k] * SHARD_VISION_FRAMES for k in ("gram_reduce", "kalman_downdate")]
+    print(f"{tag} (b) vision dp-sharded, {SHARD_WORLD} ranks x {SHARD_VISION_STREAMS // SHARD_WORLD} streams against "
+          f"{SHARD_VISION_STREAMS} streams in one process, {SHARD_VISION_FRAMES} frames: batch_lo "
+          f"{[int(r['b_batch_lo']) for r in ranks]}; ids and valid equal on {100 * same.mean():.2f}% of slot-frames; "
+          f"last counters equal on {int((cnt == one['counters']).all(axis=1).sum())} of {len(cnt)} streams; "
+          f"max|dp|={dp_b:.3e} m max|dq|={dq_b:.3e}; launches per rank {lb} (one process {one['launches'].tolist()})")
+    if not (dp_b <= 1e-2 and dq_b <= 1e-3) or [int(r["b_batch_lo"]) for r in ranks] != [0, 2]:
+        raise RuntimeError(f"{tag} the dp-sharded vision run departs from the one-process run")
+    if any(x != expect for x in lb) or one["launches"].tolist() != expect:
+        raise RuntimeError(f"{tag} (b) launches {lb}, not {expect}")
+
+    # (c) sharded_knn.
+    knn_same = all(np.array_equal(r["c_d"], d1.cpu().numpy()) and np.array_equal(r["c_idx"], i1.cpu().numpy())
+                   for r in ranks)
+    print(f"{tag} (c) sharded_knn over {SHARD_WORLD} ranks, {SHARD_KNN_POINTS} points, 64 queries, k={SHARD_KNN_K}: "
+          f"distances and indices equal to knn on one device: {knn_same}")
+    if not knn_same:
+        raise RuntimeError(f"{tag} sharded_knn differs from knn")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches_a = dict(zip(("gram_reduce", "kalman_downdate"), ranks[0]["a_launches"].tolist()))
+    launches_b = dict(zip(("gram_reduce", "kalman_downdate"), ranks[0]["b_launches"].tolist()))
+    return {"sharded": (SHARD_FRAMES, launches_a, dict(stream_frames_per_s=BATCH * SHARD_FRAMES / float(
+                ranks[0]["a_wall"]), max_dp=max(dps), unsharded_stream_frames_per_s=BATCH * SHARD_FRAMES / ref_wall)),
+            "sharded-dp": (SHARD_VISION_FRAMES, launches_b, dict(
+                stream_frames_per_s=SHARD_VISION_STREAMS * SHARD_VISION_FRAMES / float(ranks[0]["b_wall"]),
+                ids_equal=float(same.mean()), max_dp=dp_b, max_dq=dq_b))}
+
+
+def _warm_worker():
+    """A CpuRefs worker's first job: import what the references run."""
+    import ov_plane_tpu_torch.frontend.fused  # noqa: F401
+    import ov_plane_tpu_torch.scripts.run_euroc  # noqa: F401
+    import ov_plane_tpu_torch.scripts.run_mc_vision  # noqa: F401
+
+
 def _reference_job(fn, args):
     """One CPU reference in a spawned worker: (seconds, fn(*args))."""
     torch.set_num_threads(WORKER_THREADS)
@@ -2102,8 +2670,8 @@ def _reference_job(fn, args):
 class CpuRefs:
     """The CPU references of every phase. ``submit`` queues a job and returns
     its handle; ``run`` computes every queued job in WORKERS spawned
-    single-thread processes after the last phase, while the card's host
-    thread only waits, so no timed window shares the host with a reference.
+    single-thread processes beside the last phase, so no earlier timed
+    window shares the host with a reference.
     A handle's ``result()`` is its job's value once ``run`` has returned."""
 
     class Handle:
@@ -2117,6 +2685,20 @@ class CpuRefs:
 
     def __init__(self):
         self.jobs = []
+        self.pool = None
+
+    def start(self):
+        """Spawn the workers now: they import the port while the kernels
+        build, then wait idle (no timed window shares the host with work)."""
+        self.pool = concurrent.futures.ProcessPoolExecutor(WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        for _ in range(WORKERS):
+            self.pool.submit(_warm_worker)
+
+    def close(self):
+        """Stop the workers without waiting for queued work."""
+        if self.pool is not None:
+            self.pool.shutdown(wait=False, cancel_futures=True)
+            self.pool = None
 
     def submit(self, name: str, fn, *args) -> "CpuRefs.Handle":
         handle = CpuRefs.Handle(name)
@@ -2125,23 +2707,26 @@ class CpuRefs:
 
     def run(self):
         t = time.time()
-        pool = concurrent.futures.ProcessPoolExecutor(WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        if self.pool is None:
+            self.start()
+        pool = self.pool
         try:
             futures = [(h, pool.submit(_reference_job, fn, args)) for h, fn, args in self.jobs]
             for h, future in futures:
                 h.seconds, h._value = future.result()
         except BaseException:
-            pool.shutdown(wait=False, cancel_futures=True)
+            self.close()
             raise
         pool.shutdown()
+        self.pool = None
         print(f"[refs] {len(self.jobs)} CPU references in {time.time() - t:.1f} s on {WORKERS} workers: "
               + ", ".join(f"{h.name} {h.seconds:.1f} s" for h, _, _ in self.jobs))
 
 
-def drive_phases() -> dict:
-    """Phases 4-15, then their CPU references (``CpuRefs``) and the
+def drive_phases(refs: CpuRefs) -> dict:
+    """Phases 4-19, then their CPU references (``refs``) and the
     comparisons with them; returns each path's (n_frames, launches, info)."""
-    refs, results, pending = CpuRefs(), {}, []
+    results = {}
 
     def phase(name, fn, *args):
         t = time.time()
@@ -2155,22 +2740,31 @@ def drive_phases() -> dict:
         return res
 
     def vision():
-        res = drive_vision()
+        res = drive_vision(refs)
         profile_vision(res[2])
         return res
 
     for spec in PATHS:
         results[spec.name] = phase(spec.name, path, spec)
+        if spec.name == "point":
+            results["batched-replay"] = phase("batched-replay", drive_batched_replay, results["point"][2])
+            results["profiled"] = phase("profiled", drive_profiled, results["point"][2])
     results["anchored"] = phase("anchored", drive_anchored)
     results["vision"] = phase("vision", vision)
+    results["chain"] = phase("chain", drive_chain, results["vision"][2], refs)
     results["tabletop"] = phase("tabletop", drive_tabletop, refs)
-    results["replay"] = phase("replay", drive_replay)
+    results["replay"] = phase("replay", drive_replay, refs)
     results["sweep"] = phase("sweep", drive_sweep, refs)
     results["calib"] = phase("calib", drive_calib, refs)
     results["zupt"] = phase("zupt", drive_zupt)
     results.update(phase("ransac-gt", drive_ransac_gt, refs))
     results["mc-vision"] = phase("mc-vision", drive_mc_vision, refs)
-    refs.run()
+    # The references run beside the last phase, whose ranks are held for
+    # their results (their rates are printed, taken beside the references).
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        ran = ex.submit(refs.run)
+        results.update(phase("sharded", drive_sharded))
+        ran.result()
     t = time.time()
     for name, (_, _, info) in results.items():
         if "finish" in info:
@@ -2195,6 +2789,8 @@ def main() -> int:
     print(smi[0])
 
     t = time.time()
+    refs = CpuRefs()
+    refs.start()
     earlier_build = start_earlier_build(kernels)
     native.build("delaunay")          # g++, while nvcc builds the yardstick
     native.build("ikd_grid")
@@ -2207,8 +2803,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
-    rows = time_kernels(kernels, check_kernels(kernels), earlier_kernel)
-    results = drive_phases()
+    try:
+        rows = time_kernels(kernels, check_kernels(kernels), earlier_kernel)
+        results = drive_phases(refs)
+    finally:
+        refs.close()
 
     meta = {
         "gram_reduce": ("ov_plane_tpu_torch/csrc/gram_reduce.cu",

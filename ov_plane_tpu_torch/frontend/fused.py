@@ -20,7 +20,10 @@ towards the lower index as the JAX package breaks them.
 the host Delaunay plane detector (``plane_track_batch``) over each frame's
 pulled tracks; the labels it makes reach the step two frames later
 (pipelined: frame k's pull is read while frame k+1 runs);
-:meth:`FusedVisionDriver.step_stream` is its one-stream form.
+:meth:`FusedVisionDriver.step_stream` is its one-stream form,
+:meth:`FusedVisionDriver.step_batch_chunk` runs K frames per call (one
+upload, one pull), and a ``DeviceMesh`` with a 'dp' dimension spreads the
+streams over ranks.
 """
 
 from __future__ import annotations
@@ -378,6 +381,11 @@ def _unpack_inputs(vopts: FusedVisionOptions, W: int, img_wire: torch.Tensor, pa
             pay[:, o + 2 * cap:o + 2 * cap + Q].to(i32), pay[:, o + 2 * cap + Q:o + 2 * cap + 2 * Q].to(i32))
 
 
+# Counters of the pull that are gauges (planes in the state, bank rows,
+# tracked, RANSAC-kept and new FAST features); the others count events.
+GAUGES = [2, 4, 5, 6, 7]
+
+
 def _unpack(packed: np.ndarray):
     """[B, cap+3, 8] packed pull -> (ids, uv, valid, p3, ok3, counters [B, 9],
     R_GtoC, p_CinG)."""
@@ -407,10 +415,32 @@ class FusedVisionDriver:
     per-stream Delaunay calls; 0 or 1 = serial). The host detector is the
     cross-stream ``PlaneTrackerBatch`` at every B; the JAX driver's switch
     to one ``PlaneTracker`` per stream (the same result) has no
-    counterpart."""
+    counterpart.
+
+    ``chain=K`` (K > 1) makes :meth:`step_batch_chunk` available: K frames
+    per call, one payload upload and one pull per chunk, the host labels
+    held constant across the chunk (they lag K + 1 frames).
+
+    ``mesh``: a ``torch.distributed.device_mesh.DeviceMesh`` with a 'dp'
+    dimension, the counterpart of the JAX driver's ``Mesh``. ``batch`` is
+    then the global stream count and must divide by the size of 'dp'; this
+    rank steps the contiguous slab of ``batch / |dp|`` streams from
+    ``batch_lo`` and hosts their detector and label rows. The step has no
+    cross-stream communication, so no collective runs in it. The JAX
+    driver's ``_put_dp`` and ``_materialize_pull`` collapse here to the
+    rank's local slab: the caller passes this rank's images, IMU windows
+    and states (``B`` = local streams), they go to the rank's device as
+    without a mesh, and the rank reads its own pull.
+    """
+
+    TIME_KEYS = ("device", "host_plane", "wire_image", "pack_payload", "payload_put", "dispatch_enqueue",
+                 "pull_wait", "unpack")
 
     def __init__(self, cfg, eng: VioEngine, batch: int, klt_fb: bool = False, sampler: str = "auto",
-                 img_wire: str = "auto", plane_threads: int = 0):
+                 img_wire: str = "auto", plane_threads: int = 0, mesh=None, chain: int = 1):
+        self.chain = max(int(chain), 1)
+        if self.chain > 1 and (batch < 1 or mesh is not None):
+            raise ValueError("chain>1 needs batch mode without a mesh")
         if batch < 1:
             raise ValueError("the driver steps a batch of at least one stream")
         cap = cfg.tpu.max_obs_per_frame
@@ -435,7 +465,17 @@ class FusedVisionDriver:
         )
         self.eng = eng
         self.device = eng.device
-        self.B = n = batch
+        self.batch_lo = 0           # this rank's first stream
+        n = batch
+        if mesh is not None:
+            dp = mesh["dp"] if mesh.ndim > 1 else mesh
+            if dp.mesh_dim_names != ("dp",):
+                raise ValueError(f"the driver's mesh needs a 'dp' dimension, not {mesh.mesh_dim_names}")
+            if batch % dp.size() != 0:
+                raise ValueError(f"batch ({batch}) must be a positive multiple of the dp axis size ({dp.size()})")
+            n = batch // dp.size()
+            self.batch_lo = dp.get_local_rank() * n
+        self.B = n                  # this rank's streams: the tensors it steps
         self._plane_pool = None
         if plane_threads > 1 and n > 1:
             import concurrent.futures
@@ -448,7 +488,10 @@ class FusedVisionDriver:
         self._merge_from = np.full((n, Q), -1, np.int32)
         self._merge_into = np.full((n, Q), -1, np.int32)
         self.last_counters = np.zeros((n, 9), np.float32)   # the 9 counters of the last pull read
-        self.last_pull = None     # the packed [B, cap+3, 8] pull read last: the previous frame's
+        # The packed pull read last: [B, cap+3, 8] of one frame, or [K, B, cap+3, 8] of a chunk.
+        self.last_pull = None
+        # Host seconds of the last step (TIME_KEYS, as the JAX driver names them).
+        self.last_times = dict.fromkeys(self.TIME_KEYS, 0.0)
         # Per stream, from the last pull read: the detector's statistics row
         # (PlaneStatsRecorder columns) and the tracks (ids, uv, p3, ok3).
         self.last_plane_stats = [{} for _ in range(n)]
@@ -457,15 +500,27 @@ class FusedVisionDriver:
         self._guard_frame = 0
         self.wire_guard_info = None
         self._W = cfg.tpu.max_imu_per_frame
-        # Two pinned host buffers each for the payload and the pull: a frame's
-        # buffers are reused two frames later, after its pull was read.
+        # Two pinned host buffers each for the payload and the pull, of one
+        # frame and (chain > 1) of one chunk: a step's buffers are reused two
+        # steps later, after its pull's event was waited on.
         n_pay = 7 * self._W + 2 * cap + 2 * Q + 1
         pin = self.device.type == "cuda"
         self._pay_bufs = [torch.zeros(n, n_pay, dtype=torch.float32, pin_memory=pin) for _ in range(2)]
         self._pull_bufs = [torch.zeros(n, cap + 3, 8, dtype=torch.float32, pin_memory=pin) for _ in range(2)]
+        K = self.chain
+        self._chunk_pay_bufs = [torch.zeros(K, n, n_pay, dtype=torch.float32, pin_memory=pin)
+                                for _ in range(2 if K > 1 else 0)]
+        self._chunk_pull_bufs = [torch.zeros(K, n, cap + 3, 8, dtype=torch.float32, pin_memory=pin)
+                                 for _ in range(2 if K > 1 else 0)]
         self._frame = 0
+        self._chunk = 0
         self._pending = None      # (pinned pull buffer, CUDA event or None) of the last dispatch
-        self.n_pulls = 0          # pulls read: one per frame after the first
+        self.n_pulls = 0          # pulls read: one per step (frame or chunk) after the first
+
+    @property
+    def last_dbg(self) -> np.ndarray:
+        """Tracked, RANSAC-kept and new FAST counts of stream 0 in the last pull read."""
+        return self.last_counters[0, 5:8]
 
     # ------------------------------------------------------------------
     def _resolve_guard(self, img):
@@ -493,14 +548,8 @@ class FusedVisionDriver:
             self.vopts = self.vopts._replace(img_wire="f32")
             self.wire_guard_info = dict(self.wire_guard_info or {}, wire="f32", downgraded=True)
 
-    def stage_image(self, img) -> torch.Tensor:
-        """Pack a frame of every stream ``img`` [B, h, w] (float in [0, 1],
-        numpy or tensor) to the wire type and start its copy to the device;
-        pass the returned tensor to :meth:`step_batch` in place of the image."""
-        if not isinstance(img, (np.ndarray, torch.Tensor)):
-            img = np.asarray(img)
-        self._resolve_guard(img)
-        wire = _pack_image(self.vopts, img)
+    def _upload(self, wire) -> torch.Tensor:
+        """Start the copy of a packed image (numpy or tensor) to the device."""
         if isinstance(wire, np.ndarray):
             wire = torch.from_numpy(wire)
         if wire.device == self.device:
@@ -508,6 +557,24 @@ class FusedVisionDriver:
         if self.device.type == "cuda":
             wire = wire.pin_memory()
         return wire.to(self.device, non_blocking=True)
+
+    def stage_image(self, img) -> torch.Tensor:
+        """Pack a frame of every stream ``img`` [B, h, w] (float in [0, 1],
+        numpy or tensor) to the wire type and start its copy to the device;
+        pass the returned tensor to :meth:`step_batch` in place of the image."""
+        if not isinstance(img, (np.ndarray, torch.Tensor)):
+            img = np.asarray(img)
+        self._resolve_guard(img)
+        return self._upload(_pack_image(self.vopts, img))
+
+    def stage_chunk(self, imgs) -> torch.Tensor:
+        """Pack a chunk ``imgs`` [K, B, h, w] to the wire type (the guard
+        resolved on its first frame) and start its copy to the device in one
+        transfer; pass the returned tensor to :meth:`step_batch_chunk`."""
+        if not isinstance(imgs, (np.ndarray, torch.Tensor)):
+            imgs = np.asarray(imgs)
+        self._resolve_guard(imgs[0])
+        return self._upload(_pack_image(self.vopts, imgs))
 
     def init_frontend(self, first_id: int = 1) -> FusedFrontendState:
         return FusedFrontendState.create(self.vopts, self.B, self.device, first_id)
@@ -549,46 +616,138 @@ class FusedVisionDriver:
                     "num constraint updates": float(len(f2p)), "delaunay": timing.get("delaunay", 0.0),
                     "matching": timing.get("matching", 0.0), "total": total}
 
-    def _consume(self, pending):
-        """Wait for a step's pull, unpack it and run the plane detectors on it."""
+    def _consume(self, pending) -> dict:
+        """Wait for a step's pull, unpack it and run the plane detectors on it,
+        frame by frame for a chunk's pull [K, B, cap+3, 8]: gauges (counters
+        2, 4-7) take the chunk's maximum, event counts (0, 1, 3, 8) add up.
+        Returns its host seconds (pull_wait, unpack, host_plane)."""
         buf, event = pending
+        t0 = time.perf_counter()
         with record_function("pull"):
             if event is not None:
                 event.synchronize()
             self.n_pulls += 1
+            t1 = time.perf_counter()
             self.last_pull = buf.numpy().copy()
-        ids, uv, valid, p3, ok3, self.last_counters, R_GtoC, p_CinG = _unpack(self.last_pull)
-        self._run_plane_detectors(ids, uv, valid, p3, ok3, R_GtoC, p_CinG)
+        frames = self.last_pull if self.last_pull.ndim == 4 else self.last_pull[None]
+        t_unpack = t_det = 0.0
+        total = None
+        for packed in frames:
+            t2 = time.perf_counter()
+            ids, uv, valid, p3, ok3, counters, R_GtoC, p_CinG = _unpack(packed)
+            t3 = time.perf_counter()
+            self._run_plane_detectors(ids, uv, valid, p3, ok3, R_GtoC, p_CinG)
+            t_unpack, t_det = t_unpack + t3 - t2, t_det + time.perf_counter() - t3
+            if total is None:
+                total = counters
+            else:
+                gauges = np.maximum(total, counters)
+                total = total + counters
+                total[:, GAUGES] = gauges[:, GAUGES]
+        self.last_counters = total
+        return {"pull_wait": t1 - t0, "unpack": time.perf_counter() - t1 - t_det, "host_plane": t_det}
+
+    def _finish(self, pending, pipelined: bool, times: dict):
+        """Read the previous step's pull (pipelined) or this step's, and set
+        ``last_times`` (``device`` is the step's host time up to its pull)."""
+        prev, self._pending = self._pending, pending
+        if not pipelined:
+            if prev is not None:        # a pipelined step's pull still pending: read it first
+                self._consume(prev)
+            prev, self._pending = pending, None
+        if prev is not None:
+            times.update(self._consume(prev))
+        else:
+            self.last_counters = np.zeros_like(self.last_counters)
+        times["device"] = times["wire_image"] + times["pack_payload"] + times["payload_put"] + \
+            times["dispatch_enqueue"] + times["pull_wait"]
+        self.last_times = times
+
+    def _record_pull(self, pull: torch.Tensor, pull_host: torch.Tensor):
+        """Start the pull's copy into its pinned buffer; returns (buffer, event)."""
+        if self.device.type == "cuda":
+            pull_host.copy_(pull, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            return pull_host, event
+        pull_host.copy_(pull)
+        return pull_host, None
 
     # ------------------------------------------------------------------
-    def step_batch(self, states, banks, fevs, imgs, imu_t, imu_w, imu_a, t_new):
+    def step_batch(self, states, banks, fevs, imgs, imu_t, imu_w, imu_a, t_new, pipelined: bool = True):
         """B streams, one step. ``imgs`` is a staged frame (:meth:`stage_image`)
         or a host image [B, h, w]; imu_t [B, W], imu_w/imu_a [B, W, 3] and
-        t_new [B] are host arrays. Pipelined: frame k's pull is read (and the
-        host detector run on it) while frame k+1 runs, so its plane labels
-        reach the step of frame k+2."""
+        t_new [B] are host arrays. Pipelined (the default): frame k's pull is
+        read (and the host detector run on it) while frame k+1 runs, so its
+        plane labels reach the step of frame k+2. With ``pipelined=False``
+        the frame's own pull is read before returning (labels lag one
+        frame, as the reference's TrackPlane detects on the previous image)."""
+        times = dict.fromkeys(self.TIME_KEYS, 0.0)
+        t0 = time.perf_counter()
         img_w = imgs if isinstance(imgs, torch.Tensor) and imgs.device == self.device else self.stage_image(imgs)
+        t_img = time.perf_counter()
         slot = self._frame % 2
         self._frame += 1
         pay_host = self._pay_bufs[slot]
         _pack_payload(self.vopts, self._W, self.B, imu_t, imu_w, imu_a, t_new, self._label_ids,
                       self._label_pid, self._merge_from, self._merge_into, out=pay_host.numpy())
+        t_pack = time.perf_counter()
         pay = pay_host.to(self.device, non_blocking=True)
+        t_put = time.perf_counter()
         (img, it, iw, ia, tn, li, lp, mf, mi) = _unpack_inputs(self.vopts, self._W, img_w, pay)
         states, banks, fevs, out, pull = fused_vision_step(self.eng, self.vopts, states, banks, fevs, img,
                                                            it, iw, ia, tn, li, lp, mf, mi)
-        pull_host = self._pull_bufs[slot]
-        event = None
-        if self.device.type == "cuda":
-            pull_host.copy_(pull, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            pull_host.copy_(pull)
-        prev, self._pending = self._pending, (pull_host, event)
-        if prev is not None:
-            self._consume(prev)
+        pending = self._record_pull(pull, self._pull_bufs[slot])
+        t_fn = time.perf_counter()
+        times.update(wire_image=t_img - t0, pack_payload=t_pack - t_img, payload_put=t_put - t_pack,
+                     dispatch_enqueue=t_fn - t_put)
+        self._finish(pending, pipelined, times)
         return states, banks, fevs, out
+
+    def step_batch_chunk(self, states, banks, fevs, imgs, imu_t, imu_w, imu_a, t_new, pipelined: bool = True):
+        """K frames × B streams in one call (``chain=K`` at construction):
+        imgs [K, B, h, w] (host images, or staged by :meth:`stage_chunk`),
+        imu_t [K, B, W], imu_w/imu_a [K, B, W, 3], t_new [K, B] host arrays.
+        The K payloads, with the host labels held constant across the chunk,
+        go up in one transfer; the K fused steps run with no host read
+        between them; their pulls come back as one [K, B, cap+3, 8] copy with
+        one event. Pipelined, the previous chunk's pull is read while this
+        one runs (labels lag K + 1 frames), the detector running once per
+        frame of it in frame order. Returns ``outs`` whose fields carry a
+        leading [K] dimension."""
+        if self.chain == 1:
+            raise ValueError("step_batch_chunk needs a driver made with chain=K > 1")
+        K = self.chain
+        times = dict.fromkeys(self.TIME_KEYS, 0.0)
+        t0 = time.perf_counter()
+        img_w = imgs if isinstance(imgs, torch.Tensor) and imgs.device == self.device else self.stage_chunk(imgs)
+        if img_w.shape[0] != K:
+            raise ValueError(f"a chunk holds {K} frames, not {img_w.shape[0]}")
+        t_img = time.perf_counter()
+        slot = self._chunk % 2
+        self._chunk += 1
+        pay_host = self._chunk_pay_bufs[slot]
+        pays = pay_host.numpy()
+        for k in range(K):
+            _pack_payload(self.vopts, self._W, self.B, imu_t[k], imu_w[k], imu_a[k], t_new[k], self._label_ids,
+                          self._label_pid, self._merge_from, self._merge_into, out=pays[k])
+        t_pack = time.perf_counter()
+        pay = pay_host.to(self.device, non_blocking=True)
+        t_put = time.perf_counter()
+        outs, pulls = [], []
+        for k in range(K):
+            (img, it, iw, ia, tn, li, lp, mf, mi) = _unpack_inputs(self.vopts, self._W, img_w[k], pay[k])
+            states, banks, fevs, out, pull = fused_vision_step(self.eng, self.vopts, states, banks, fevs, img,
+                                                               it, iw, ia, tn, li, lp, mf, mi)
+            outs.append(out)
+            pulls.append(pull)
+        pending = self._record_pull(torch.stack(pulls), self._chunk_pull_bufs[slot])
+        t_fn = time.perf_counter()
+        outs = type(outs[0])(*(torch.stack(f) for f in zip(*outs)))
+        times.update(wire_image=t_img - t0, pack_payload=t_pack - t_img, payload_put=t_put - t_pack,
+                     dispatch_enqueue=t_fn - t_put)
+        self._finish(pending, pipelined, times)
+        return states, banks, fevs, outs
 
     def step_stream(self, state, bank, fev, img, imu_t, imu_w, imu_a, t_new, pipelined: bool = True):
         """One stream, one step: :meth:`step_batch` at B = 1 with host inputs
@@ -604,17 +763,14 @@ class FusedVisionDriver:
         if self.B != 1:
             raise ValueError(f"step_stream steps one stream; this driver has {self.B} (use step_batch)")
         imgs = img if img.ndim == 3 else img[None]
-        state, bank, fev, out = self.step_batch(state, bank, fev, imgs, np.asarray(imu_t)[None],
-                                                np.asarray(imu_w)[None], np.asarray(imu_a)[None],
-                                                np.asarray([t_new], np.float64))
-        if not pipelined:
-            self.flush_stream()
-        return state, bank, fev, out
+        return self.step_batch(state, bank, fev, imgs, np.asarray(imu_t)[None], np.asarray(imu_w)[None],
+                               np.asarray(imu_a)[None], np.asarray([t_new], np.float64), pipelined=pipelined)
 
     def flush_stream(self):
-        """Read the pull left pending by the last :meth:`step_batch` or
-        :meth:`step_stream`, so the last frame's counters and plane
-        detection are processed."""
+        """Read the pull left pending by the last :meth:`step_batch`,
+        :meth:`step_batch_chunk` or :meth:`step_stream` (a chunk's frame by
+        frame), so the last frames' counters and plane detection are
+        processed."""
         if self._pending is not None:
             prev, self._pending = self._pending, None
             self._consume(prev)

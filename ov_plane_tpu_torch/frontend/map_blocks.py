@@ -6,8 +6,9 @@ per voxel: the ikd-tree's downsample-on-insert) and recycles the oldest
 slots when full, and KNN is a dense masked distance computation with a
 stable sort (ties go to the lower index, as ``jax.lax.top_k`` breaks them).
 The voxel hash is int64 arithmetic and wraps on overflow, as in the JAX
-package. The JAX module's ``sharded_knn`` (an ``all_gather`` across a
-device mesh) waits for the port's mesh (ROADMAP queue 1, item 3).
+package. :func:`sharded_knn` splits the points over the ranks of a process
+group: a shard-local top-k, an ``all_gather`` of the candidates, and the
+global top-k, equal to :func:`knn` on one device.
 """
 
 from __future__ import annotations
@@ -90,6 +91,31 @@ def knn(m: MapBlocks, queries, k: int, plane_filter=None):
     d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
     vals, idx = torch.sort(d2, dim=-1, stable=True)
     return torch.sqrt(torch.clamp(vals[:, :k], min=0.0)), idx[:, :k]
+
+
+def sharded_knn(points_shard, active_shard, queries, k: int, group):
+    """KNN over points split into equal contiguous shards over the ranks of
+    the process group ``group`` (rank r holds points [r·n, (r+1)·n)):
+    points_shard [n, 3], active_shard [n], queries [Q, 3] the same on every
+    rank. Each rank takes its shard's k nearest (a stable sort: ties to the
+    lower index), ``all_gather`` collects every rank's candidates in rank
+    order, and a stable sort of them gives the global k nearest with ties
+    to the lower global index, as :func:`knn` orders them on one device.
+    Returns (dists [Q, k], global idx [Q, k]), the same on every rank."""
+    import torch.distributed as dist
+
+    n = points_shard.shape[0]
+    d2 = ((queries[:, None, :] - points_shard[None, :, :]) ** 2).sum(dim=-1)
+    d2 = torch.where(active_shard[None, :], d2, torch.full_like(d2, float("inf")))
+    kl = min(k, n)
+    vals, idx = torch.sort(d2, dim=-1, stable=True)
+    cand = torch.stack([vals[:, :kl], (idx[:, :kl] + dist.get_rank(group) * n).to(vals.dtype)])   # [2, Q, kl]
+    gathered = [torch.empty_like(cand) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(gathered, cand, group=group)
+    allc = torch.cat(gathered, dim=-1)                                   # [2, Q, S·kl], rank order
+    vals, order = torch.sort(allc[0], dim=-1, stable=True)
+    gidx = allc[1].gather(1, order[:, :k]).to(torch.int64)
+    return torch.sqrt(torch.clamp(vals[:, :k], min=0.0)), gidx
 
 
 class PersistentPlaneMap:

@@ -3,8 +3,9 @@
 Counterpart of ``ov_plane_tpu/models/manager.py``: the MSCKF path with SLAM
 landmarks, CP planes (with or without plane RANSAC), online camera
 calibration (time offset, extrinsics, intrinsics), ZUPT in its three
-formulations and ground-truth injection (ArUco landmarks and sharded
-compression raise here). One frame is
+formulations, ground-truth injection and the classic update's rows
+sharded over a mesh dimension (``tpu.shard_axis``); ArUco landmarks raise
+here. One frame is
 
     [ZUPT attempt] → propagate + clone → [explicit zero-motion ZUPT] →
     undistort + ingest → triage (MSCKF selection, SLAM
@@ -156,12 +157,17 @@ class VioEngine:
                                       "use a 3-dof representation")
         later = {
             "ArUco landmarks (use_aruco)": cfg.use_aruco,
-            "sharded compression (tpu.shard_axis)": bool(cfg.tpu.shard_axis),
         }
         for what, on in later.items():
             if on:
                 raise NotImplementedError(f"{what} is not ported yet: it comes with a later slice "
                                           "of ov_plane_tpu_torch (see ROADMAP.md queue 1)")
+        if cfg.tpu.shard_axis:
+            # The sharded classic update needs the mesh dimension's process
+            # group now: it never falls back to the unsharded form.
+            from ov_plane_tpu_torch.parallel.distributed import axis_group
+
+            axis_group(cfg.tpu.shard_axis)
         lay = StateLayout(
             max_clones=st.max_clone_size + 1,  # +1: transient slot between clone and marginalize
             max_slam=max(st.max_slam_features, 1), max_planes=cfg.tpu.max_planes,
@@ -205,6 +211,7 @@ class VioEngine:
                 sigma_c=st.sigma_constraint,
                 use_plane_constraint=st.use_plane_constraint and st.use_plane_constraint_msckf,
                 use_info_compression=cfg.tpu.use_info_compression,
+                shard_axis=cfg.tpu.shard_axis,
             ),
             slam_opts=SlamOptions(
                 jac=jac._replace(rep=rep_slam), tri=tri,

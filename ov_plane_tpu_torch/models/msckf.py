@@ -9,7 +9,10 @@ Counterpart of ``ov_plane_tpu/models/msckf.py``:
 
 Compression is either the information form (the :func:`kernels.gram_reduce`
 kernel, then ``parallel.schur.information_to_compressed``, both in f64
-whatever the filter's type) or thin QR.
+whatever the filter's type), its sharded form (``opts.shard_axis``: each
+rank of that mesh dimension forms the information of its share of the
+rows, summed by one ``all_reduce``; ``parallel.schur.sharded_compress``)
+or thin QR.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from ov_plane_tpu_torch.models.jacobians import JacobianOptions, clone_set_from_
 from ov_plane_tpu_torch.ops import ekf, kernels
 from ov_plane_tpu_torch.ops import representations as reps
 from ov_plane_tpu_torch.ops.triangulation import TriangulationOptions, triangulate
-from ov_plane_tpu_torch.parallel.schur import information_to_compressed
+from ov_plane_tpu_torch.parallel.schur import information_to_compressed, sharded_compress
 from ov_plane_tpu_torch.state.vio_state import VioState, tree_where
 from ov_plane_tpu_torch.utils.chi2 import CHI2_095_TABLE
 
@@ -36,6 +39,7 @@ class MsckfOptions(NamedTuple):
     sigma_c: float = 0.05
     use_plane_constraint: bool = False
     use_info_compression: bool = False
+    shard_axis: str = ""        # mesh dimension whose ranks share the classic update's rows
 
 
 @functools.lru_cache(maxsize=8)
@@ -104,7 +108,21 @@ def msckf_update(state: VioState, opts: MsckfOptions, sel_uv, sel_uvn, sel_mask,
     pf = passed.to(dtype)
     H_big = (H_x2 * pf[..., None, None]).reshape(B, M * (3 * K - 3), D)
     r_big = (res2 * pf[..., None]).reshape(B, M * (3 * K - 3))
-    if opts.use_info_compression:
+    if opts.shard_axis:
+        # The stacked rows split over the ranks of the named mesh dimension,
+        # a contiguous share each; the state is replicated over them, so
+        # every rank must receive the same (Λ, η) bits from the all_reduce.
+        import torch.distributed as dist
+
+        from ov_plane_tpu_torch.parallel.distributed import axis_group
+
+        group = axis_group(opts.shard_axis)
+        n, pos = dist.get_world_size(group), dist.get_rank(group)
+        rows = H_big.shape[1]
+        share = -(-rows // n)
+        lo, hi = min(rows, pos * share), min(rows, (pos + 1) * share)
+        H_c, r_c = (x.to(dtype) for x in sharded_compress(H_big[:, lo:hi], r_big[:, lo:hi], group))
+    elif opts.use_info_compression:
         # The Gram squares the stack's condition number: it is formed (the
         # kernel's double instantiation, from the exact f64 images of the
         # rows) and factored in f64 whatever the filter's type, and only the

@@ -35,7 +35,11 @@ SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in
 # the 15 calibration columns), the ZUPT's (its 6·63 = 378 rows at W = 64,
 # the explicit formulation's 9), the plane-RANSAC and ground-truth runs' at
 # 16 (D = 114) and the vision Monte-Carlo's at 8 seeds (D = 102, 4 plane
-# slots). Every shape runs
+# slots), and slice 9's: the sharded point update's per-rank gram (each of
+# two ranks takes 660 of the 1320 stacked rows, D = 93) and its f64
+# downdate, the dp-sharded vision run's shapes at 2 streams per rank and 4
+# in one process (the chain, the batched replay and the staged profiler
+# launch the vision and point shapes above). Every shape runs
 # in both types: the grams in f64 (the classic update forms its Gram in f64
 # whatever the filter's type), the replay's downdates in f64 and in f32.
 SWEEP = [(64, 1320, 93), (64, 93, 93), (64, 1320, 114), (64, 114, 114), (64, 115, 114), (64, 3, 114),
@@ -44,7 +48,9 @@ SWEEP = [(64, 1320, 93), (64, 93, 93), (64, 1320, 114), (64, 114, 114), (64, 115
          (1, 156, 156), (1, 157, 156), (1, 33, 156), (1, 3, 156),
          (20, 1320, 114), (20, 114, 114), (20, 115, 114), (20, 1320, 147), (20, 147, 147), (20, 148, 147),
          (20, 33, 147), (16, 1320, 129), (16, 129, 129), (16, 378, 114), (16, 9, 114), (16, 1320, 114),
-         (8, 1320, 102), (8, 102, 102), (8, 103, 102), (8, 3, 102)] + SWEEP
+         (8, 1320, 102), (8, 102, 102), (8, 103, 102), (8, 3, 102),
+         (64, 660, 93), (2, 1320, 114), (2, 114, 114), (2, 115, 114), (2, 3, 114),
+         (4, 1320, 114), (4, 114, 114), (4, 115, 114), (4, 3, 114)] + SWEEP
 
 
 def _inputs(B, M, D, dtype, g, offset):

@@ -94,7 +94,9 @@ def _window(imu_t, imu_w, imu_a, s0, W, n_streams):
     return it, iw, ia
 
 
-def make_inputs():
+def make_inputs(k0=K0, n_frames=N_FRAMES):
+    """The inputs of frames k0+1..k0+n_frames (default: the module's 12 from frame 40)."""
+    K0, N_FRAMES = k0, n_frames
     cfg = _cfg()
     truth = tsim.load_scene(tsim.VISION_SCENE_PATH, device="cpu")
     sim = tsim.apply_noise(truth, tsim.noise_params(cfg), B, torch.Generator().manual_seed(11))

@@ -78,14 +78,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
 
 
 def test_later_slices_raise_not_implemented():
-    """ArUco landmarks and sharded compression are the features still to port."""
-    for key, value in (("use_aruco", True), ("tpu.shard_axis", "seq")):
-        cfg = slice_config()
-        obj, *path = key.split(".")
-        target = cfg if not path else getattr(cfg, obj)
-        setattr(target, path[-1] if path else obj, value)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            VioEngine.from_config(cfg, device="cpu")
+    """ArUco landmarks are the feature still to port. Sharded compression is
+    ported (slice 9): without a process group for its axis it raises."""
+    cfg = slice_config()
+    cfg.use_aruco = True
+    with pytest.raises(NotImplementedError, match="later slice"):
+        VioEngine.from_config(cfg, device="cpu")
+    cfg = slice_config()
+    cfg.tpu.shard_axis = "seq"
+    with pytest.raises(RuntimeError, match="no torch.distributed process group"):
+        VioEngine.from_config(cfg, device="cpu")
     # Calibration, ZUPT, plane RANSAC and ground-truth injection run.
     for key, value in (("try_zupt", True), ("state.use_groundtruths", True),
                        ("state.do_calib_camera_pose", True), ("state.do_calib_camera_intrinsics", True),
@@ -439,3 +441,56 @@ def test_mc_vision_needs_cuda_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         run_mc_vision.render_frames(cfg, simulator.load_scene(simulator.TABLETOP_SCENE_PATH, device="cpu"),
                                     render, 1)
+
+
+SERVING_SLICE = ("ov_plane_tpu_torch.parallel.distributed", "ov_plane_tpu_torch.parallel.replay",
+                 "ov_plane_tpu_torch.parallel.schur", "ov_plane_tpu_torch.utils.profiling",
+                 "ov_plane_tpu_torch.frontend.fused", "ov_plane_tpu_torch.frontend.map_blocks",
+                 "ov_plane_tpu_torch.models.msckf")
+
+
+def test_serving_slice_loads_no_jax_image_or_yaml_library():
+    """The chained driver, the data-parallel and sharded layer and the staged
+    profiler import none of JAX, the JAX package, PIL, OpenCV or PyYAML."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SERVING_SLICE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ov_plane_tpu', 'PIL', 'cv2', 'yaml')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    assert set(SERVING_SLICE) <= set(MODULES)
+
+
+@pytest.mark.parametrize("module", SERVING_SLICE)
+def test_serving_slice_source_stands_alone(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    hits = STANDS_ALONE.findall(path.read_text())
+    assert not hits, f"{path.name} imports {hits}"
+
+
+def test_shard_axis_and_chain_arguments_raise(monkeypatch):
+    """``from_config`` with ``tpu.shard_axis`` and no process group raises
+    (the update never runs unsharded in its place), and so does a process
+    group whose current mesh lacks the axis; ``chain > 1`` raises under a
+    mesh or at B = 0."""
+    from ov_plane_tpu_torch.frontend.fused import FusedVisionDriver
+    from ov_plane_tpu_torch.parallel import distributed
+    from ov_plane_tpu_torch.utils.config import vision_config
+
+    cfg = slice_config()
+    cfg.tpu.shard_axis = "sp"
+    with pytest.raises(RuntimeError, match="no torch.distributed process group"):
+        VioEngine.from_config(cfg, device="cpu")
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(distributed, "_MESH", None)
+    with pytest.raises(RuntimeError, match="no such dimension"):
+        VioEngine.from_config(cfg, device="cpu")
+    vcfg = vision_config()
+    eng = VioEngine.from_config(vcfg, device="cpu")
+    for batch, mesh in ((0, None), (4, object())):
+        with pytest.raises(ValueError, match="chain>1 needs batch mode without a mesh"):
+            FusedVisionDriver(vcfg, eng, batch, chain=4, mesh=mesh)

@@ -9,7 +9,8 @@
   so the JAX outputs are committed (``tests/data/torch_sweep_jax.npz``), as
   is the statistics reference the card's sweep is held to
   (``ov_plane_tpu_torch/data/sweep_jax_reference.npz``: per-seed RMSE and
-  NEES of all four variants over the 20 seeds of ``run_variant``). Running
+  NEES of all four variants over the 20 seeds of ``run_variant``, over the
+  whole scan and over its first ``PREFIX_FRAMES``). Running
   this file as a script regenerates both:
 
       env JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_sweep.py
@@ -37,6 +38,8 @@ DURATION = 6.0        # seconds of room scan: the shortest of 6-10 s at which JA
 SEEDS = 20
 EXACT_SEEDS, EXACT_FRAMES = 2, 20
 EXACT_VARIANTS = ("M-PT", "M-PL")
+# First frames whose per-seed statistics the card's cut sweep is held to (chip_smoke.SWEEP_FRAMES).
+PREFIX_FRAMES = (24,)
 COUNTERS = ("n_msckf_used", "n_bank", "n_clones", "n_slam", "n_planes", "n_slam_init", "n_plane_init",
             "n_plane_constraints", "n_plane_merges", "n_plane_dropped")
 METRICS = ("rmse_pos", "rmse_ori_deg", "nees_pos", "nees_ori")
@@ -342,6 +345,9 @@ def generate():
             t = time.time()
             outs = jax_run(name, sims)
             m = metrics(outs, gt_q, gt_p)
+            for n in PREFIX_FRAMES:
+                stats.update({f"{name}/f{n}/{k}": v for k, v in
+                              metrics({k: v[:, :n] for k, v in outs.items()}, gt_q[:n], gt_p[:n]).items()})
             first = np.nonzero(outs["n_planes"].max(axis=0) > 0)[0]
             first_slam = np.nonzero(outs["n_slam"].max(axis=0) > 0)[0]
             stats.update({f"{name}/{k}": v for k, v in m.items()})
