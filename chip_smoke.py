@@ -9,7 +9,9 @@ Phases (any failure raises and the exit code is nonzero):
 2. build the CUDA kernels from ``ov_plane_tpu_torch/csrc`` with nvcc;
 3. check each kernel against its plain PyTorch version on the card over a
    sweep of shapes (SWEEP: tile, chunk and range edges, empty inputs, masked
-   rows, a data pointer 4 bytes off 16-byte alignment), in f32 and f64, for
+   rows, a data pointer 4 bytes off 16-byte alignment; LONE_SHAPES: one
+   stream, where the f64 downdate splits more than 64 rows over a cluster),
+   in f32 and f64, for
    tolerance, exact symmetry and bitwise-equal repeated calls; then time, at
    each path's shapes in the type they launch in (the classic update's gram
    is f64 on every path; the anchored, tabletop and replay runs' shapes
@@ -27,7 +29,7 @@ Phases (any failure raises and the exit code is nonzero):
    stream 0's accuracy and the agreement of two streams with an f64 CPU run
    of the port (the pose within the path's limits, and the per-frame count
    of features that passed the χ² gate equal on every stream-frame; every
-   CPU reference is queued and computed beside the last phase, see
+   CPU reference is computed in its lane's workers as it is queued, see
    ``CpuRefs``); profile 1 frame;
 5. drive the plane path the same way (``plane_config``, the committed M-PL
    scene, its first 24 frames, 64 streams, f32): also the plane states and
@@ -130,9 +132,9 @@ Phases (any failure raises and the exit code is nonzero):
    equal, the per-rank gram through the kernel; (b) the vision path
    dp-sharded at 2 ranks × 2 streams against 4 streams in one process; (c)
    ``sharded_knn`` against ``knn``;
-   beside this last phase, every CPU reference (``CpuRefs``: its workers
-   start during the build; no earlier timed window shares the host with
-   one), then the comparisons with them;
+   phases 4-21 run in three lanes at once (``LANES``: lane 0 in this
+   process, the others spawned, each with its CPU references), then each
+   lane's comparisons with its references;
 8b. (after phase 8) ``run_euroc --bag --loop-out --viz-dir``: a bz2 bag
    written by the port's ``eval/rosbag`` from phase 8's ASL folder, 6 frames
    after the GT init in the host path's configuration against phase 8's
@@ -218,11 +220,10 @@ CAL_BATCH = 16
 CAL_D = 129
 MC_D = 102
 F32, F64 = torch.float32, torch.float64
-# The CPU references run beside the last phase (the sharded ranks, held for
-# their results), in WORKERS spawned processes of WORKER_THREADS threads
-# each: the step is host-bound, so a reference beside an earlier timed
-# window would slow it.
-WORKERS, WORKER_THREADS = 8, 1
+# Each lane of phases (LANES) computes its CPU references as it queues
+# them, in WORKERS spawned processes of WORKER_THREADS threads each: with
+# three lanes, three lane processes and six workers share the 8 cores.
+WORKERS, WORKER_THREADS = 2, 1
 # Slice 9 (phases 16-19): the chain runs the vision path's shapes; the batched
 # replay and the staged profiler the point path's; the sharded point replay
 # (f64) launches the gram on each rank's half of the 1320 stacked rows and
@@ -323,6 +324,10 @@ SWEEP_D = (1, 31, 32, 63, 93, 95, 96, 114, 147, 195, 300)
 SWEEP_M = (0, 1, 3, 33, 93, 94, 114, 115, 147, 148, 300, 792, 1320, 4096)
 SWEEP_B = (1, 5, 64)
 SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in enumerate(SWEEP_M)]
+# One stream at the replays' and scripts' D (in f64 the rows of a stream of
+# more than 64 are split over a cluster): M = D, D + 1, 33 and 3, and a
+# stream whose last row slice is short.
+LONE_SHAPES = [(1, M, D) for D in (141, 156, 204) for M in (D, D + 1, 33, 3)] + [(1, 999, 141)]
 
 
 def _is_flush(name: str) -> bool:
@@ -454,7 +459,7 @@ def check_kernels(kernels):
         for dtype in (torch.float32, torch.float64):
             worst = 0.0
             on_path = [sh[:3] for sh in path_shapes(kname, dtype)]
-            shapes = [(sh, False) for sh in on_path] + [(s, i % 2 == 0) for i, s in enumerate(SWEEP)]
+            shapes = [(sh, False) for sh in on_path] + [(s, i % 2 == 0) for i, s in enumerate(LONE_SHAPES + SWEEP)]
             for (B, M, D), offset in shapes:
                 args = _inputs(kname, B, M, D, dtype, g, offset=offset)
                 try:
@@ -3067,11 +3072,10 @@ def _reference_job(fn, args):
 
 
 class CpuRefs:
-    """The CPU references of every phase. ``submit`` queues a job and returns
-    its handle; ``run`` computes every queued job in WORKERS spawned
-    single-thread processes beside the last phase, so no earlier timed
-    window shares the host with a reference.
-    A handle's ``result()`` is its job's value once ``run`` has returned."""
+    """The CPU references of one lane's phases. ``submit`` hands a job to
+    WORKERS spawned single-thread processes at once and returns its handle;
+    ``run`` waits for every job. A handle's ``result()`` is its job's value
+    once ``run`` has returned."""
 
     class Handle:
         def __init__(self, name):
@@ -3087,91 +3091,178 @@ class CpuRefs:
         self.pool = None
 
     def start(self):
-        """Spawn the workers now: they import the port while the kernels
-        build, then wait idle (no timed window shares the host with work)."""
+        """Spawn the workers now: they import the port while the lane's
+        first phase runs."""
         self.pool = concurrent.futures.ProcessPoolExecutor(WORKERS, mp_context=multiprocessing.get_context("spawn"))
         for _ in range(WORKERS):
             self.pool.submit(_warm_worker)
 
     def close(self):
-        """Stop the workers without waiting for queued work."""
+        """Stop the workers without waiting for their jobs (``shutdown``
+        alone lets a running reference go on after the script has failed)."""
         if self.pool is not None:
+            procs = list((self.pool._processes or {}).values())
             self.pool.shutdown(wait=False, cancel_futures=True)
+            for proc in procs:
+                proc.kill()
             self.pool = None
 
     def submit(self, name: str, fn, *args) -> "CpuRefs.Handle":
+        if self.pool is None:
+            self.start()
         handle = CpuRefs.Handle(name)
-        self.jobs.append((handle, fn, args))
+        self.jobs.append((handle, self.pool.submit(_reference_job, fn, args)))
         return handle
 
     def run(self):
         t = time.time()
-        if self.pool is None:
-            self.start()
-        pool = self.pool
         try:
-            futures = [(h, pool.submit(_reference_job, fn, args)) for h, fn, args in self.jobs]
-            for h, future in futures:
+            for h, future in self.jobs:
                 h.seconds, h._value = future.result()
         except BaseException:
             self.close()
             raise
-        pool.shutdown()
-        self.pool = None
-        print(f"[refs] {len(self.jobs)} CPU references in {time.time() - t:.1f} s on {WORKERS} workers: "
-              + ", ".join(f"{h.name} {h.seconds:.1f} s" for h, _, _ in self.jobs))
+        if self.pool is not None:
+            self.pool.shutdown()
+            self.pool = None
+        print(f"[refs] {len(self.jobs)} CPU references on {WORKERS} workers, done {time.time() - t:.1f} s after the "
+              f"lane's last phase: " + ", ".join(f"{h.name} {h.seconds:.1f} s" for h, _ in self.jobs))
 
 
-def drive_phases(refs: CpuRefs) -> dict:
-    """Phases 4-21, then their CPU references (``refs``) and the
-    comparisons with them; returns each path's (n_frames, launches, info)."""
+def _profiled_path(spec: PathSpec, refs: CpuRefs):
+    res = drive_path(spec, refs)
+    profile_frames(spec, res[2])
+    return res
+
+
+def _profiled_vision(refs: CpuRefs):
+    res = drive_vision(refs)
+    profile_vision(res[2])
+    return res
+
+
+# Phases 4-21 by name: each takes the lane's results so far and its CpuRefs
+# and returns (n_frames, launches, info), or a dict of such by name.
+PHASES = {
+    **{spec.name: (lambda spec: lambda res, refs: _profiled_path(spec, refs))(spec) for spec in PATHS},
+    "batched-replay": lambda res, refs: drive_batched_replay(res["point"][2]),
+    "profiled": lambda res, refs: drive_profiled(res["point"][2]),
+    "vision": lambda res, refs: _profiled_vision(refs),
+    "tabletop": lambda res, refs: drive_tabletop(refs),
+    "chain": lambda res, refs: drive_chain(res["vision"][2], refs),
+    "replay": lambda res, refs: drive_replay(refs),
+    "bag": lambda res, refs: drive_bag(res["replay"][2]),
+    "sweep": lambda res, refs: drive_sweep(refs),
+    "calib": lambda res, refs: drive_calib(refs),
+    "zupt": lambda res, refs: drive_zupt(),
+    "anchored": lambda res, refs: drive_anchored(),
+    "ransac-gt": lambda res, refs: drive_ransac_gt(refs),
+    "mc-vision": lambda res, refs: drive_mc_vision(refs),
+    "klt-samplers": lambda res, refs: drive_klt_samplers(refs),
+    "viz": lambda res, refs: drive_viz(),
+    "sharded": lambda res, refs: drive_sharded(),
+}
+# Phases 4-21 in lanes that run at once on the one card: lane 0 in this
+# process, each other lane in a spawned process of its own. Every step is
+# host-bound (the card idles most of a frame, PERF.md §5), so the lanes
+# share the card without waiting for it, and the script keeps within its
+# time limit on a slower host; the rates printed after phase 3 are taken
+# beside the other lanes. A phase that reads another's result follows it
+# in its lane.
+LANES = (
+    ("point", "batched-replay", "profiled", "plane", "ms-pl", "vision", "tabletop", "chain"),
+    ("replay", "bag", "sweep", "calib", "zupt"),
+    ("anchored", "ransac-gt", "mc-vision", "klt-samplers", "viz", "sharded"),
+)
+LANE_TIMEOUT = 1000     # seconds a lane may take, its CPU references included
+
+
+def drive_lane(lane: int, refs: CpuRefs) -> dict:
+    """The phases of LANES[lane], then the comparisons with their CPU
+    references (``refs``); returns each path's (n_frames, launches, info)."""
     results = {}
-
-    def phase(name, fn, *args):
-        t = time.time()
-        res = fn(*args)
-        print(f"[{name}] phase took {time.time() - t:.1f} s")
-        return res
-
-    def path(spec):
-        res = drive_path(spec, refs)
-        profile_frames(spec, res[2])
-        return res
-
-    def vision():
-        res = drive_vision(refs)
-        profile_vision(res[2])
-        return res
-
-    for spec in PATHS:
-        results[spec.name] = phase(spec.name, path, spec)
-        if spec.name == "point":
-            results["batched-replay"] = phase("batched-replay", drive_batched_replay, results["point"][2])
-            results["profiled"] = phase("profiled", drive_profiled, results["point"][2])
-    results["anchored"] = phase("anchored", drive_anchored)
-    results["vision"] = phase("vision", vision)
-    results["chain"] = phase("chain", drive_chain, results["vision"][2], refs)
-    results["tabletop"] = phase("tabletop", drive_tabletop, refs)
-    results["replay"] = phase("replay", drive_replay, refs)
-    results["bag"] = phase("bag", drive_bag, results["replay"][2])
-    results["sweep"] = phase("sweep", drive_sweep, refs)
-    results["calib"] = phase("calib", drive_calib, refs)
-    results["zupt"] = phase("zupt", drive_zupt)
-    results.update(phase("ransac-gt", drive_ransac_gt, refs))
-    results["mc-vision"] = phase("mc-vision", drive_mc_vision, refs)
-    results["klt-samplers"] = phase("klt-samplers", drive_klt_samplers, refs)
-    results.update(phase("viz", drive_viz))
-    # The references run beside the last phase, whose ranks are held for
-    # their results (their rates are printed, taken beside the references).
-    with concurrent.futures.ThreadPoolExecutor(1) as ex:
-        ran = ex.submit(refs.run)
-        results.update(phase("sharded", drive_sharded))
-        ran.result()
+    try:
+        for name in LANES[lane]:
+            t = time.time()
+            res = PHASES[name](results, refs)
+            results.update(res if isinstance(res, dict) else {name: res})
+            print(f"[{name}] phase took {time.time() - t:.1f} s")
+        refs.run()
+    finally:
+        refs.close()
     t = time.time()
-    for name, (_, _, info) in results.items():
-        if "finish" in info:
-            info.pop("finish")()
+    for info in (info for _, _, info in results.values() if "finish" in info):
+        info.pop("finish")()
     print(f"[refs] the comparisons with the CPU references took {time.time() - t:.1f} s")
+    return results
+
+
+def _lane_main(lane: int, out: str):
+    """A spawned lane: its standard output and error to ``out``.log and
+    ``out``.err, each path's (n_frames, launches, rate) to ``out``.json.
+    SIGTERM stops it through its ``finally`` clauses, which stop its own
+    processes."""
+    import os
+    import signal
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(1))
+    for fd, suffix in ((1, ".log"), (2, ".err")):
+        with open(out + suffix, "w") as f:
+            os.dup2(f.fileno(), fd)
+    sys.stdout.reconfigure(line_buffering=True)
+    from ov_plane_tpu_torch.ops import kernels
+    from ov_plane_tpu_torch.utils.torchenv import resolve_device
+
+    resolve_device("cuda")
+    kernels.build()
+    results = drive_lane(lane, CpuRefs())
+    with open(out + ".json", "w") as f:
+        json.dump({p: [n, {k: int(v) for k, v in launches.items()},
+                       {"stream_frames_per_s": float(info["stream_frames_per_s"])}]
+                   for p, (n, launches, info) in results.items()}, f)
+
+
+def drive_lanes(refs: CpuRefs) -> dict:
+    """Phases 4-21: every lane but the first spawned, the first here with
+    ``refs``, all at once; then each spawned lane's output is printed and
+    its results merged. Fails if a lane fails or runs past LANE_TIMEOUT."""
+    import os
+    import shutil
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="ovp_lanes_")
+    outs = {k: f"{tmp}/lane{k}" for k in range(1, len(LANES))}
+    procs = {k: ctx.Process(target=_lane_main, args=(k, out)) for k, out in outs.items()}
+    t = time.time()
+    for proc in procs.values():
+        proc.start()
+    try:
+        results = drive_lane(0, refs)
+        for proc in procs.values():
+            proc.join(timeout=max(1.0, LANE_TIMEOUT - (time.time() - t)))
+    finally:
+        for proc in procs.values():
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=20)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        for k, out in outs.items():
+            for suffix, stream in ((".log", sys.stdout), (".err", sys.stderr)):
+                text = Path(out + suffix).read_text() if os.path.exists(out + suffix) else ""
+                if text:
+                    stream.write(f"[lane {k}] its standard {'output' if suffix == '.log' else 'error'}:\n{text}")
+                    stream.flush()
+    codes = {k: proc.exitcode for k, proc in procs.items()}
+    if any(c != 0 for c in codes.values()):
+        raise RuntimeError(f"a lane failed or ran past {LANE_TIMEOUT} s: exit codes {codes}")
+    for out in outs.values():
+        with open(out + ".json") as f:
+            results.update({p: tuple(v) for p, v in json.load(f).items()})
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[lanes] {len(LANES)} lanes took {time.time() - t:.1f} s")
     return results
 
 
@@ -3209,7 +3300,7 @@ def main() -> int:
 
     try:
         rows = time_kernels(kernels, check_kernels(kernels), earlier_kernel)
-        results = drive_phases(refs)
+        results = drive_lanes(refs)
     finally:
         refs.close()
 

@@ -1,5 +1,6 @@
 // Shared body of the two Gram-family kernels of the filter update, for Hopper
-// (sm_90a).
+// (sm_90a): their f32 path, and the staging helpers that the f64 path
+// (gram_dmma.cuh, on the f64 tensor cores) shares.
 //
 // Both TPU kernels of the JAX package (ov_plane_tpu/ops/pallas_kernels.py)
 // contract a tall matrix with itself and with one extra column:
@@ -41,14 +42,47 @@
 // the columns past D zero) and computes from that, double-buffered, one
 // __syncthreads per chunk.
 //
-// Numerics: plain IEEE FMA in the working type (no TF32, no tensor cores),
-// one accumulator per output over a range's rows in row order. The launch
-// plans are computed by ops/kernels.launch_plan (gram_rows_kernel) and
-// ops/kernels.stream_plan (gram_stream_kernel).
+// Numerics of this f32 path: plain IEEE FMA (no TF32, no tensor cores), one
+// accumulator per output over a range's rows in row order. The launch plans
+// are computed by ops/kernels.launch_plan (gram_rows_kernel) and
+// ops/kernels.stream_plan (gram_stream_kernel). The f64 calls take
+// gram_dmma.cuh instead.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// Phase marks of a block, read by tools/kernel_phases.py: compiled only with
+// -DOVP_PHASE_MARKS. Thread 0 writes the %globaltimer at mark i, and adds
+// clock64 cycles to counter i.
+#ifdef OVP_PHASE_MARKS
+namespace ovp {
+__device__ unsigned long long g_marks[1 << 16][8];
+__device__ long long g_cycles[1 << 16][8];
+}  // namespace ovp
+#define OVP_BLOCK (blockIdx.y * gridDim.x + blockIdx.x)
+#define OVP_MARK(i)                                                     \
+  do {                                                                  \
+    if (threadIdx.x == 0) {                                             \
+      unsigned long long t_;                                            \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));            \
+      ::ovp::g_marks[OVP_BLOCK][i] = t_;                                \
+    }                                                                   \
+  } while (0)
+#define OVP_CYCLES() clock64()
+#define OVP_COUNT(i, v)                                                 \
+  do {                                                                  \
+    if (threadIdx.x == 0) ::ovp::g_cycles[OVP_BLOCK][i] += (v);         \
+  } while (0)
+#else
+#define OVP_MARK(i) \
+  do {              \
+  } while (0)
+#define OVP_CYCLES() 0LL
+#define OVP_COUNT(i, v) \
+  do {                  \
+  } while (0)
+#endif
 
 namespace ovp {
 
@@ -59,11 +93,9 @@ constexpr int kMaxThreads = 192;  // six warp tiles
 constexpr int kStreamThreads = 256;  // gram_stream_kernel: warp tiles × row slices
 
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 template <typename T> struct Vec16;
 template <> struct Vec16<float> { using type = float4; };
-template <> struct Vec16<double> { using type = double2; };
 
 // N consecutive values from 16-byte-aligned shared memory into registers.
 template <int N, typename T>

@@ -42,7 +42,9 @@ SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in
 # launch the vision and point shapes above), and slice 10's: the ArUco
 # replay's at one stream (D = 204 with 16 ArUco landmark slots; the bag
 # replay launches the replay's), run_persistent_map's (D = 114) and
-# viz_replay's (D = 141) at one stream. Every shape runs
+# viz_replay's (D = 141) at one stream (in f64 the rows of one stream of
+# more than 64 are split over a cluster: the last, (1, 999, 141), leaves a
+# short last slice). Every shape runs
 # in both types: the grams in f64 (the classic update forms its Gram in f64
 # whatever the filter's type), the replay's downdates in f64 and in f32.
 SWEEP = [(64, 1320, 93), (64, 93, 93), (64, 1320, 114), (64, 114, 114), (64, 115, 114), (64, 3, 114),
@@ -55,7 +57,8 @@ SWEEP = [(64, 1320, 93), (64, 93, 93), (64, 1320, 114), (64, 114, 114), (64, 115
          (64, 660, 93), (2, 1320, 114), (2, 114, 114), (2, 115, 114), (2, 3, 114),
          (4, 1320, 114), (4, 114, 114), (4, 115, 114), (4, 3, 114),
          (1, 204, 204), (1, 205, 204), (1, 33, 204), (1, 3, 204), (1, 114, 114), (1, 115, 114),
-         (1, 141, 141), (1, 142, 141), (1, 33, 141)] + SWEEP
+         (1, 141, 141), (1, 142, 141), (1, 33, 141), (1, 3, 141),
+         (1, 999, 141)] + SWEEP
 
 
 def _inputs(B, M, D, dtype, g, offset):

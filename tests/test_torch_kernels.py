@@ -7,10 +7,13 @@ TPU interpret mode, on the same numpy inputs, exactly as
 Pallas kernel sums 128-row tiles in another order than the plain product.
 
 The CUDA kernels themselves run only on a card: ``tests/test_torch_cuda.py``
-holds them against these plain versions there. Their launch plans
-(``kernels.launch_plan`` for the gram, ``kernels.stream_plan`` for the
-downdate, pure Python) are checked here at the shapes of that sweep: every
-row and every upper tile is covered exactly once.
+holds them against these plain versions there. Their launch plans (pure
+Python: ``kernels.launch_plan`` and ``kernels.stream_plan`` for f32,
+``kernels.gram_f64_plan`` and ``kernels.downdate_f64_plan`` for the f64
+tensor-core kernels) are checked here at the shapes of that sweep and at the
+f64 shapes the filter's paths launch: every row and every upper tile or MMA
+fragment is covered exactly once, and shared memory and clusters stay within
+the card's limits.
 """
 
 import jax
@@ -96,6 +99,16 @@ SWEEP_M = (0, 1, 3, 93, 94, 300, 1320, 4096)
 SWEEP_B = (1, 5, 64)
 SWEEP = [(SWEEP_B[(i + j) % 3], M, D) for i, D in enumerate(SWEEP_D) for j, M in enumerate(SWEEP_M)]
 SWEEP += [(64, 1320, 93), (64, 93, 93), (65535, 94, 93), (7, 5, 12)]
+# The f64 launch shapes of chip_smoke.PATH_SHAPES: every path's gram, the
+# one-stream downdates of the replay (D = 156; 204 with ArUco landmarks),
+# run_persistent_map (114) and viz_replay (141), the sharded point's
+# (64, 93, 93); and one lone stream whose last row slice is short and
+# staged in several chunks.
+F64_GRAM_SHAPES = [(64, 1320, 93), (64, 1320, 114), (64, 1320, 147), (4, 1320, 147), (20, 1320, 114),
+                   (20, 1320, 147), (16, 1320, 129), (16, 1320, 114), (8, 1320, 102), (64, 660, 93),
+                   (2, 1320, 114), (4, 1320, 114)]
+F64_DOWNDATE_SHAPES = [(1, M, D) for D in (156, 204, 141) for M in (D, D + 1, 33, 3)]
+F64_DOWNDATE_SHAPES += [(1, 114, 114), (1, 115, 114), (64, 93, 93), (1, 999, 141)]
 
 
 def _upper_tile(t, ntc):
@@ -124,15 +137,78 @@ def _tile_cover(plan, ntc, tiles):
     return cover
 
 
+def _fragment_cover(D, items):
+    """How often each 16×8 fragment (fi, fj) of the augmented Gram is
+    computed by the warp items ``items``."""
+    g = kernels.f64_geometry(D)
+    cover = np.zeros((g.nfi, g.nfj), dtype=int)
+    for w in items:
+        for fi, fj in kernels.f64_item_fragments(D, w):
+            cover[fi, fj] += 1
+    return cover
+
+
+def _check_fragment_cover(D, cover):
+    """Every fragment that reaches the upper triangle exactly once, no other;
+    so every (i, j), i ≤ j ≤ D, of the augmented Gram lies in a computed
+    fragment, and each computed fragment lies in an upper 32×32 tile of the
+    f32 path's workspace layout."""
+    g = kernels.f64_geometry(D)
+    fi, fj = np.meshgrid(np.arange(g.nfi), np.arange(g.nfj), indexing="ij")
+    upper = 8 * fj + 7 >= 16 * fi
+    assert (cover[upper] == 1).all() and not cover[~upper].any(), D
+    i, j = np.triu_indices(D + 1)
+    assert (cover[i // 16, j // 8] == 1).all()
+    assert (fj[upper] // 4 >= fi[upper] // 2).all() and (fj[upper] // 4 < (D + 32) // 32).all()
+
+
+def _check_gram_f64_plan(B, M, D, n_sm):
+    plan = kernels.gram_f64_plan(B, M, D, n_sm)
+    g = kernels.f64_geometry(D)
+    ntc = (D + kernels.TILE) // kernels.TILE
+    assert plan.smem_bytes <= kernels.MAX_SMEM and 1 <= plan.groups <= 65535
+    assert plan.items_per_group <= plan.warps <= kernels.F64_MAX_WARPS and plan.warps >= kernels.F64_MIN_WARPS
+    assert plan.chunk_rows % kernels.F64_K == 0 and 0 < plan.chunk_rows <= 64 * plan.warps
+    assert plan.blocks * plan.groups <= max(n_sm, plan.groups)
+    rows = np.zeros(B * M, dtype=int)
+    for i in range(plan.blocks):
+        lo, hi = i * plan.rows_per_block, min((i + 1) * plan.rows_per_block, B * M)
+        assert hi > lo
+        rows[lo:hi] += 1
+    assert (rows == 1).all(), (B, M, D, plan)
+    for b in {0, B // 2, B - 1}:
+        parts = _stream_parts(b, M, plan.rows_per_block)
+        owners = sorted({r // plan.rows_per_block for r in range(b * M, (b + 1) * M)})
+        assert list(parts) == owners and len(parts) <= plan.max_parts
+    assert plan.workspace == B * plan.max_parts * ntc * (ntc + 1) // 2 * kernels.TILE ** 2
+    if plan.blocks:
+        assert plan.smem_bytes == kernels._f64_staging_bytes(plan.chunk_rows, D, g.ldy, plan.stages, 2)
+    # Upper fragments: group g's warp w computes item g·items_per_group + w.
+    items = [gr * plan.items_per_group + w for gr in range(plan.groups) for w in range(plan.items_per_group)]
+    assert max(items) >= g.items - 1
+    _check_fragment_cover(D, _fragment_cover(D, [w for w in items if w < g.items]))
+
+
 @pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
 def test_launch_plan_covers_every_row_and_upper_tile_once(itemsize):
+    """f32: ``launch_plan`` (32×32 warp tiles); f64: ``gram_f64_plan``
+    (16×8 MMA fragments in warp items), at the sweep's shapes and the
+    paths' f64 gram shapes."""
+    if itemsize == 8:
+        for B, M, D in SWEEP + F64_GRAM_SHAPES:
+            for n_sm in (132, 114):
+                _check_gram_f64_plan(B, M, D, n_sm)
+        # The main path's gram: one group (H read once), a block on every SM.
+        plan = kernels.gram_f64_plan(64, 1320, 114)
+        assert (plan.groups, plan.warps, plan.blocks) == (1, 8, 132)
+        return
     for B, M, D in SWEEP:
         for n_sm in (132, 114):
-            plan = kernels.launch_plan(B, M, D, itemsize, n_sm)
+            plan = kernels.launch_plan(B, M, D, n_sm)
             ntc = (D + kernels.TILE) // kernels.TILE
             ld = kernels.TILE * ntc
-            raw = -(-plan.chunk_rows * D * itemsize // 128) * 128
-            staging = plan.stages * raw + 2 * plan.chunk_rows * ld * itemsize
+            raw = -(-plan.chunk_rows * D * 4 // 128) * 128
+            staging = plan.stages * raw + 2 * plan.chunk_rows * ld * 4
             assert plan.smem_bytes <= 227 * 1024 and 1 <= plan.groups <= 65535
             assert 1 <= plan.warps <= kernels.MAX_WARPS
             assert plan.blocks * plan.groups <= kernels.BLOCKS_PER_SM * n_sm
@@ -155,15 +231,64 @@ def test_launch_plan_covers_every_row_and_upper_tile_once(itemsize):
             cover = _tile_cover(plan, ntc, plan.warps)
             assert (cover[np.triu_indices(ntc)] == 1).all() and not np.tril(cover, -1).any()
     # The main path's gram fills the card in one wave with one tile group (H read once).
-    plan = kernels.launch_plan(64, 1320, 93, 4)
+    plan = kernels.launch_plan(64, 1320, 93)
     assert plan.groups == 1 and kernels.BLOCKS_PER_SM * 132 - 6 <= plan.blocks <= kernels.BLOCKS_PER_SM * 132
+
+
+def _check_downdate_f64_plan(B, M, D, n_sm):
+    plan = kernels.downdate_f64_plan(B, M, D, n_sm)
+    g = kernels.f64_geometry(D)
+    assert plan.smem_bytes <= kernels.MAX_SMEM
+    assert 1 <= plan.slices <= kernels.F64_CLUSTER and 1 <= plan.ranks <= min(plan.slices, kernels.F64_RANKS, 16)
+    assert plan.slices % plan.ranks == 0 and (plan.ranks > 1) == (M > kernels.F64_SHORT and plan.slices > 1)
+    # Once slices are used, one block per SM, or two of at most 4 warps (a
+    # thread takes 255 registers; an SM sub-partition holds two such warps).
+    assert plan.slices == 1 or B * plan.groups * plan.slices <= (n_sm if plan.warps > 4 else 2 * n_sm)
+    assert B <= 65535 and 1 <= plan.items_per_group <= plan.warps <= kernels.F64_MAX_WARPS
+    # One block per SM where the items allow it; slices only where most SMs would idle.
+    assert B * plan.groups <= n_sm or plan.groups == -(-g.items // kernels.F64_MAX_WARPS), (B, M, D, plan)
+    assert B * plan.groups >= n_sm // 2 or plan.groups == g.items or plan.items_per_group == 1
+    # Rows: every row of a stream in exactly one slice, every 8-row step of
+    # a slice taken by exactly one of an item's warps.
+    rows = np.zeros(M, dtype=int)
+    for s in range(plan.ranks):
+        rows[min(s * plan.slice_rows, M):min((s + 1) * plan.slice_rows, M)] += 1
+    assert (rows == 1).all(), (B, M, D, plan)
+    # The shares of the sums: every element stored by exactly one block of the group.
+    E = plan.items_per_group * kernels.F64_FRAGS * 128
+    shares = np.zeros(E, dtype=int)
+    for s in range(plan.slices):
+        shares[s * E // plan.slices:(s + 1) * E // plan.slices] += 1
+    assert (shares == 1).all()
+    parts = plan.warps // plan.items_per_group
+    share = -(-plan.items_per_group * kernels.F64_FRAGS * 128 // plan.slices)
+    assert plan.warps == parts * plan.items_per_group
+    assert parts <= max(1, -(-plan.slice_rows // kernels.F64_K), -(-share // (32 * plan.warps // parts * kernels.F64_PRE)))
+    assert share <= 32 * plan.warps * kernels.F64_PRE or plan.warps > kernels.F64_MAX_WARPS - plan.items_per_group
+    steps = np.zeros(-(-plan.slice_rows // kernels.F64_K), dtype=int)
+    for piece in range(parts):
+        steps[piece::parts] += 1
+    assert (steps == 1).all()  # a warp past the last step adds zeros
+    # Shared memory: the group's fragment table, each warp's fragment sums.
+    assert plan.items_per_group * kernels.F64_FRAGS * 4 <= kernels.F64_TAB
+    assert plan.smem_bytes == kernels.F64_TAB + plan.warps * kernels.F64_FRAGS * 128 * 8
+    items = [gr * plan.items_per_group + w for gr in range(plan.groups) for w in range(plan.items_per_group)]
+    _check_fragment_cover(D, _fragment_cover(D, [w for w in items if w < g.items]))
+    return plan
 
 
 @pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
 def test_stream_plan_covers_every_upper_tile_once(itemsize):
+    """f32: ``stream_plan``; f64: ``downdate_f64_plan`` (row slices over a
+    cluster), at the sweep's shapes and the paths' f64 downdate shapes."""
+    if itemsize == 8:
+        for B, M, D in SWEEP + F64_DOWNDATE_SHAPES:
+            for n_sm in (132, 114):
+                _check_downdate_f64_plan(B, M, D, n_sm)
+        return
     for B, M, D in SWEEP:
         for n_sm in (132, 114):
-            plan = kernels.stream_plan(B, M, D, itemsize, n_sm)
+            plan = kernels.stream_plan(B, M, D, n_sm)
             ntc = (D + kernels.TILE) // kernels.TILE
             n_upper = ntc * (ntc + 1) // 2
             assert 1 <= plan.tiles <= kernels.MAX_WARPS and 1 <= plan.groups <= n_upper
@@ -177,16 +302,16 @@ def test_stream_plan_covers_every_upper_tile_once(itemsize):
             # Staging: a stream in one chunk (one bulk copy) when it fits, and
             # room for the epilogue's padded tile per warp.
             ld = kernels.TILE * ntc
-            whole = kernels._staging_bytes(max(M, 1), M, D, ld, itemsize, 1)
+            whole = kernels._staging_bytes(max(M, 1), M, D, ld, 1)
             if whole <= kernels.MAX_SMEM:
                 assert plan.chunk_rows == max(M, 1) and plan.stages == 1
             else:
                 assert plan.chunk_rows < M and 1 <= plan.stages <= kernels.STAGES
-            assert plan.smem_bytes >= kernels._staging_bytes(plan.chunk_rows, M, D, ld, itemsize, plan.stages)
-            assert plan.smem_bytes >= kernels.BAR_BYTES + plan.threads * 33 * itemsize
+            assert plan.smem_bytes >= kernels._staging_bytes(plan.chunk_rows, M, D, ld, plan.stages)
+            assert plan.smem_bytes >= kernels.BAR_BYTES + plan.threads * 33 * 4
     # The main path's downdate: one bulk copy of a stream's W, 6 tiles over
     # 3 groups of 2 (192 blocks), 4 row slices per tile.
-    plan = kernels.stream_plan(64, 93, 93, 4)
+    plan = kernels.stream_plan(64, 93, 93)
     assert (plan.groups, plan.tiles, plan.threads, plan.chunk_rows, plan.stages) == (3, 2, 256, 93, 1)
 
 
@@ -215,7 +340,65 @@ def test_build_key_follows_every_included_header(tmp_path, monkeypatch):
     before = kernels._lib_path("k")
     (tmp_path / "sub" / "b.cuh").write_text("#pragma once\nconstexpr int kB = 2;\n")
     assert kernels._lib_path("k") != before
-    # The port's own sources: both kernels share gram_tile.cuh.
+    # The port's own sources: both kernels share gram_dmma.cuh (f64), which
+    # includes gram_tile.cuh (f32).
     monkeypatch.undo()
     for name in ("gram_reduce", "kalman_downdate"):
-        assert {f.name for f in kernels.source_files(name)} == {f"{name}.cu", "gram_tile.cuh"}
+        assert {f.name for f in kernels.source_files(name)} == {f"{name}.cu", "gram_dmma.cuh", "gram_tile.cuh"}
+
+
+@pytest.mark.parametrize("D", sorted(set(SWEEP_D) | {102, 114, 129, 141, 147, 156, 204, 255, 256, 511}))
+def test_f64_items_cover_every_upper_fragment_once(D):
+    """The warp items of the f64 kernels (``gram_dmma.cuh`` ``item``,
+    mirrored by ``kernels.f64_item_fragments``): every fragment that reaches
+    the upper triangle of the augmented Gram in exactly one item; an item is
+    at most F64_FRAGS fragments of at most two bands; the items of a band
+    pair are equal but for the last."""
+    g = kernels.f64_geometry(D)
+    frags = [kernels.f64_item_fragments(D, w) for w in range(g.items)]
+    _check_fragment_cover(D, _fragment_cover(D, range(g.items)))
+    for f in frags:
+        assert 1 <= len(f) <= kernels.F64_FRAGS and len({fi for fi, _ in f}) <= 2
+    for p in range(g.npairs):
+        sizes = [len(f) for f in frags[p * g.wpp:(p + 1) * g.wpp]]
+        assert sizes[:-1] == [kernels.F64_FRAGS] * (g.wpp - 1) and sum(sizes) == g.lp
+    # The staged tile's row-pair stride: 16-byte rows, and eight lanes of a
+    # quarter warp (g in 0..1, t in 0..3) on eight distinct 16-byte banks.
+    assert g.ldy % 2 == 0 and g.ldy >= 2 * 16 * g.nfi and g.ldy % 16 == 4
+    banks = {((t * g.ldy + 2 * c) // 2) % 8 for t in range(4) for c in range(2)}
+    assert len(banks) == 8
+
+
+@pytest.mark.parametrize("shape", [(1, 156, 156), (1, 205, 204), (1, 141, 141), (1, 114, 114), (1, 3, 204)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_downdate_f64_plan_splits_a_lone_stream_over_a_cluster(shape):
+    """One stream (the replays and scripts): one warp item per tile group,
+    its sums stored by 2 to 8 blocks per group, the whole launch within one
+    wave of the card at one block per SM; the rows of a long stream cut into
+    slices over a cluster of up to 4 of those blocks, a short one (M = 3)
+    taken whole by each."""
+    B, M, D = shape
+    plan = _check_downdate_f64_plan(B, M, D, 132)
+    assert plan.items_per_group == 1 and plan.groups == kernels.f64_geometry(D).items
+    assert 2 <= plan.slices <= 8 and plan.groups * plan.slices <= (132 if plan.warps > 4 else 264)
+    assert plan.ranks == (min(plan.slices, kernels.F64_RANKS) if M > 64 else 1)
+
+
+def test_launchers_take_every_plan_field():
+    """The ctypes signature of each launcher (``kernels._declare``) holds the
+    five pointers, B, M, D, the plan's launch fields as the wrapper passes
+    them, and the stream."""
+    import ctypes
+    from types import SimpleNamespace
+
+    fns = {f"ovp_{n}_{t}": SimpleNamespace() for n in kernels.SOURCES for t in ("f32", "f64")}
+    for name in kernels.SOURCES:
+        kernels._declare(SimpleNamespace(**fns), name)
+    plans = {("gram_reduce", "f32"): kernels._plan_args(kernels.launch_plan(2, 50, 20)),
+             ("gram_reduce", "f64"): kernels._plan_args(kernels.gram_f64_plan(2, 50, 20)),
+             ("kalman_downdate", "f32"): tuple(kernels.stream_plan(2, 50, 20)),
+             ("kalman_downdate", "f64"): tuple(kernels.downdate_f64_plan(2, 50, 20))}
+    for (name, t), plan in plans.items():
+        types = fns[f"ovp_{name}_{t}"].argtypes
+        assert types[:5] == [ctypes.c_void_p] * 5 and types[-1] is ctypes.c_void_p
+        assert len(types) == 5 + 3 + len(plan) + 1, (name, t)
