@@ -47,8 +47,8 @@ Phases (any failure raises and the exit code is nonzero):
    on the card, add each stream's fixed pixel noise, quantize to the 8-bit
    lattice and stage the ring on the card; ``VioEngine.from_config`` →
    ``FusedVisionDriver(cfg, eng, 64)`` → ``init_frontend`` → ``stage_image``
-   → ``step_batch`` per frame → ``flush_stream``. A 6-frame warm-up counts
-   the host synchronizations per step (only the one packed pull), then 36
+   → ``step_batch`` per frame → ``flush_stream``. A 12-frame warm-up counts
+   the host synchronizations in steps 3-12 (only the one packed pull), then 36
    frames from a fresh state are timed: launch counts, stream 0's accuracy,
    the host detector's plane labels reaching the step over the 64 streams,
    and streams 0–1 against the port's CPU
@@ -81,13 +81,13 @@ Phases (any failure raises and the exit code is nonzero):
 10. the algorithm ladder (``scripts/run_sweep``): the M-PL scene built on
    the card by the port's ``build_sim`` and held to the committed one (ids
    equal, floats within 1e-9); then M-PT, MS-PT, M-PL and MS-PL over 20
-   noise seeds of the first 24 frames of a 6 s room scan, each as 20
+   noise seeds of the whole 47-frame 6 s room scan, each as 20
    streams in f32: exact launch
    counts, CP planes and SLAM landmarks where the variant has them, every
    TUM file and the ``ov_eval`` table, streams 0-1 against the port's CPU
-   f64 run (20 frames, every counter equal, the pose within (1e-2 m, 1e-3)),
+   f64 run (47 frames, every counter equal, the pose within (1e-2 m, 1e-3)),
    and each variant's mean RMSE and NEES within 3 combined standard errors
-   of the committed JAX reference over the same frames
+   of the committed JAX reference's whole-scan statistics
    (``data/sweep_jax_reference.npz``);
 12. online calibration (time offset, extrinsics, intrinsics): the
    configuration of tests/test_torch_calib.py on the 20 s scene that
@@ -107,12 +107,18 @@ Phases (any failure raises and the exit code is nonzero):
    with ground-truth injection, each with its launch counts and streams 0-1
    against the CPU f64 run (12 frames);
 15. ``scripts/run_mc_vision`` through its entry point (the tabletop scene,
-   sparse, 8 seeds, 12 frames per arm, planes ON and OFF): both arms finite,
-   per-seed ATE and the paired statistics, the launch counts; the ON arm's
-   streams 0-1 against the port's CPU run over 8 frames, as the script ran
-   it (u8 wire, ``mm_bf16``: printed) and with the exact ``mm`` sampler on
-   the f32 wire (held), and frame 2's KLT on identical inputs on the card
-   and the CPU under each sampler (printed: where the two runs part);
+   sparse, 8 seeds, 48 frames per arm, planes ON and OFF): both arms finite,
+   per-seed ATE and the paired statistics, the launch counts, constraint
+   updates and a plane in the state in the ON arm, none in the OFF arm, the
+   arms' ATEs apart; the ON arm's streams 0-1 against the port's CPU run
+   over all 48 frames: a rerun with the exact ``mm`` sampler on the f32
+   wire held (ids and valid flags on ≥ 99 % of slot-frames, the plane
+   counters on ≥ MC_PLANES_MIN_EQUAL frames, the pose within (1e-2 m,
+   1e-3)), the script's own arm (u8 wire, ``mm_bf16``) printed against the
+   CPU run with the filter in f64 and in f32 and, where it parts, traced
+   stage by stage over its first MC_TRACE frames; frame 2's KLT on
+   identical inputs on the card and the CPU under each sampler
+   (``mm_bf16``: status equal, tracked points within KLT_TRACE_LIMIT px);
 16. (after phase 6) the chained dispatch: the vision path with
    ``FusedVisionDriver(chain=4)`` and ``step_batch_chunk`` at B = 64 on the
    vision phase's staged frames, one warm-up chunk and 2 timed chunks: no
@@ -157,6 +163,7 @@ from __future__ import annotations
 
 import bisect
 import concurrent.futures
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -879,7 +886,7 @@ def report_profile(tag, prof, ranges, first, n, frame_wall_ms, wall_ms):
 
 
 VISION_FRAMES = 36      # the first 36 of the bench's 80 vision frames (bench.py:116)
-VISION_WARM = 6         # warm-up frames, the host synchronizations counted from the third
+VISION_WARM = 12        # warm-up frames, the host synchronizations counted from the third
 VISION_REF = 12         # frames of streams 0-1 against the port's CPU run
 ANCHOR_FRAMES = 36      # its frames: the first inits at frame 20 move anchor some 11 frames later
 TABLETOP_LAYERS = dict(texture_cell=0.1, speckle_cells=((0.05, 0.12, 0.30), 0.12))   # tests/test_fused_planes.py
@@ -1002,8 +1009,9 @@ def drive_vision(refs: CpuRefs):
     run = vision_setup(cfg, eng)
     print(f"{tag} D={eng.layout.dim}; B={BATCH}; {VISION_FRAMES} frames; set-up {time.time() - t:.2f} s")
 
-    # Warm-up: 8 frames; host synchronizations counted in steps 3-8 (the
-    # first two make the libraries' handles), pulls counted by the driver.
+    # Warm-up: VISION_WARM frames; host synchronizations counted in steps
+    # 3-VISION_WARM (the first two make the libraries' handles), pulls
+    # counted by the driver.
     drv, st, bank, fev = vision_driver(run, eng, BATCH, "cuda", torch.float32)
     t = time.time()
     syncs, pulls = [], []
@@ -1631,8 +1639,8 @@ def _replay_cpu_reference(tmp: str) -> dict:
     return {k: r[k] for k in ("p", "q", "counters", "aruco_ids", "slam_id", "slam_active")}
 
 
-SWEEP_FRAMES = 24          # the first 24 of the scan's 47 frames (CP planes and SLAM landmarks from frame 20)
-SWEEP_REF_FRAMES = 20      # frames of streams 0-1 against the port's CPU f64 run
+SWEEP_FRAMES = 47          # the whole scan (CP planes and SLAM landmarks from frame 20)
+SWEEP_REF_FRAMES = 47      # frames of streams 0-1 against the port's CPU f64 run
 SWEEP_PER_FRAME = {"M-PT": {"gram_reduce": 1, "kalman_downdate": 1},     # classic
                    "MS-PT": {"gram_reduce": 1, "kalman_downdate": 10},   # classic, SLAM update, 8 SLAM inits
                    "M-PL": {"gram_reduce": 1, "kalman_downdate": 4},     # classic, plane update, 2 plane inits
@@ -1655,7 +1663,6 @@ def drive_sweep(refs: CpuRefs):
     standard errors of JAX's over its 20 seeds. Returns (frames, launches,
     info) summed over the variants, ``info["finish"]()`` holding the card to
     the CPU references queued on ``refs``."""
-    import contextlib
     import io
     import math
     import tempfile
@@ -1758,14 +1765,16 @@ def drive_sweep(refs: CpuRefs):
                           outs.cov_diag_imu[..., 3:6].double(), truths[use_planes].gt_q[1:F + 1].double(),
                           truths[use_planes].gt_p[1:F + 1].double())
             stats = {}
+            # The committed statistics of the whole scan, or of its first F frames.
+            prefix = name if F == sim.cam_t_imu.shape[0] - 1 else f"{name}/f{F}"
             for k in SWEEP_METRICS:
-                port, jax_ref = m[k].cpu().numpy(), ref[f"{name}/f{F}/{k}"]
+                port, jax_ref = m[k].cpu().numpy(), ref[f"{prefix}/{k}"]
                 se = math.sqrt(port.var(ddof=1) / port.size + jax_ref.var(ddof=1) / jax_ref.size)
                 z = abs(port.mean() - jax_ref.mean()) / se if se > 0 else 0.0
                 stats[k] = dict(port=float(port.mean()), jax=float(jax_ref.mean()), se=se, z=z)
-                print(f"{tag} {name}: {k} mean card {port.mean():.5f} (std {port.std(ddof=1):.5f}) vs JAX "
-                      f"{jax_ref.mean():.5f} (std {jax_ref.std(ddof=1):.5f}); combined standard error {se:.5f}, "
-                      f"|difference| = {z:.2f} of it (limit {SWEEP_SE})")
+                print(f"{tag} {name}: {k} over {F} frames, mean card {port.mean():.5f} (std "
+                      f"{port.std(ddof=1):.5f}) vs JAX {jax_ref.mean():.5f} (std {jax_ref.std(ddof=1):.5f}); "
+                      f"combined standard error {se:.5f}, |difference| = {z:.2f} of it (limit {SWEEP_SE})")
             bad = [k for k, v in stats.items() if not v["z"] <= SWEEP_SE]
             if bad:
                 raise RuntimeError(f"{name}: the mean {bad} departs from the JAX reference by more than "
@@ -1831,7 +1840,7 @@ def drive_sweep(refs: CpuRefs):
 # held to 0.8x at 60 frames (|dt| to 0.5x; 0.016 there).
 CAL_FRAMES = 60
 CAL_INTR_RATIO, CAL_DT_RATIO = 0.8, 0.5
-MC_SEEDS, MC_FRAMES = 8, 12   # the vision Monte-Carlo's seeds and frames per arm
+MC_SEEDS, MC_FRAMES = 8, 48   # the vision Monte-Carlo's seeds and frames per arm (first plane near frame 42)
 CAL_DT = 0.015          # the scene's camera-IMU offset (tests/test_calib_dt.py)
 CAL_REF = 12            # frames of streams 0-1 against the port's CPU f64 run
 CAL_PER_FRAME = {"gram_reduce": 1, "kalman_downdate": 1}      # the classic update
@@ -1845,7 +1854,9 @@ ZUPT_PER_FRAME = {"standard": {"gram_reduce": 0, "kalman_downdate": 2},
 RANSAC_FRAMES = 22      # the M-PL scene's first plane enters the state at frame 20
 MC_ARGS = ["--scene", "tabletop", "--densities", "sparse", "--seeds", str(MC_SEEDS), "--max-frames",
            str(MC_FRAMES)]
-MC_REF = 8              # frames of the ON arm's streams 0-1 against the port's CPU run
+MC_REF = MC_FRAMES      # frames of the ON arm's streams 0-1 against the port's CPU run
+MC_PLANES_MIN_EQUAL = 44  # of the 48 frames, plane counters of streams 0-1 equal to the CPU run's (tabletop: 44 of 46)
+KLT_TRACE_LIMIT = 1e-5  # px: frame 2's tracked points, card against CPU on identical inputs
 MC_PER_FRAME = {"ON": {"gram_reduce": 1, "kalman_downdate": 12}, "OFF": {"gram_reduce": 1, "kalman_downdate": 1}}
 
 
@@ -2214,14 +2225,62 @@ def _ransac_gt_finish(tag, name, job, outs, info):
     return finish
 
 
-def _mc_arm(cfg, sim, images, dtype, device, sampler: str, wire: str) -> dict:
+MC_TRACE = 12           # frames of the ON arm whose frontend stages are recorded for the stage trace
+TRACE_STAGES = ("flow prior", "KLT", "RANSAC", "FAST", "triangulation")
+
+
+@contextlib.contextmanager
+def _stage_recorder(rec: list, n: int):
+    """Records streams 0-1's frontend stage outputs of the first n frames of
+    ``fused_vision_step`` into ``rec`` (one dict per frame, as numpy): the
+    KLT's mask and flow prior, its points and status, the RANSAC inliers,
+    the FAST detections and the whole-track triangulations. The stage
+    functions are wrapped for the run and restored after it."""
+    from ov_plane_tpu_torch.frontend import fast, fused, klt
+
+    orig = (klt.track, fused.gyro_ransac, fast.detect_grid, fused._solve_tracks)
+
+    def host(*xs):
+        return tuple(x[:2].detach().cpu().numpy() for x in xs)
+
+    def track(prep0, prep1, pts0, mask, opts, init_flow=None):
+        out = orig[0](prep0, prep1, pts0, mask, opts, init_flow)
+        if len(rec) < n:
+            rec.append({"flow prior": host(mask, init_flow), "KLT": host(*out)})
+        return out
+
+    def stage(name, fn, pick):
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            if rec and name not in rec[-1]:
+                rec[-1][name] = host(*pick(out))
+                if name == "RANSAC":          # its inputs too: (uvn1, uvn2, mask, R_1to2), options
+                    rec[-1]["RANSAC inputs"] = host(*a[:4]) + (a[4],)
+            return out
+        return wrapped
+
+    klt.track = track
+    fused.gyro_ransac = stage("RANSAC", orig[1], lambda out: out[:1])
+    fast.detect_grid = stage("FAST", orig[2], lambda out: out)
+    fused._solve_tracks = stage("triangulation", orig[3], lambda out: out)
+    try:
+        yield rec
+    finally:
+        klt.track, fused.gyro_ransac, fast.detect_grid, fused._solve_tracks = orig
+
+
+def _mc_arm(cfg, sim, images, dtype, device, sampler: str, wire: str, record: int = 0) -> dict:
     """The planes-ON arm of ``run_mc_vision.run_variant`` over given noisy
     images [n, b, H, W] (numpy) of the first b streams of ``sim``, with the
     driver's sampler and wire as given ('auto' resolves against the first
-    image, as the script's driver does). Returns per frame the track ids and valid flags [n, b,
-    cap], p [n, b, 3] and q [n, b, 4] as numpy, and the driver's KLT options
-    and tracker state after the last frame."""
+    image, as the script's driver does). Returns per frame the track ids
+    and valid flags [n, b, cap], p [n, b, 3], q [n, b, 4] and the nine
+    pulled counters [n, b, 9] as numpy, the driver's KLT options and tracker
+    state after the last frame, and (``record`` > 0) streams 0-1's frontend
+    stages over the first ``record`` frames (``_stage_recorder``)."""
     import copy
+
+    import numpy as np
 
     from ov_plane_tpu_torch.models.manager import VioEngine
 
@@ -2234,32 +2293,42 @@ def _mc_arm(cfg, sim, images, dtype, device, sampler: str, wire: str) -> dict:
                     sim.gt_bg_cam[:b, 0], sim.gt_ba_cam[:b, 0], None, sampler, wire)
     drv, st, bank, fev = vision_driver(run, VioEngine.from_config(cfg, device=device), b, device, dtype)
     rows = {"ids": [], "valid": [], "p": [], "q": []}
-    for i in range(1, len(images) + 1):
-        st, bank, fev, out = drv.step_batch(st, bank, fev, drv.stage_image(images[i - 1]), *_imu_window(run, i))
-        for k, v in (("ids", fev.ids), ("valid", fev.valid), ("p", out.p), ("q", out.q)):
-            rows[k].append(v)
+    counters, stages = [], []
+    with _stage_recorder(stages, record) if record else contextlib.nullcontext():
+        for i in range(1, len(images) + 1):
+            st, bank, fev, out = drv.step_batch(st, bank, fev, drv.stage_image(images[i - 1]),
+                                                *_imu_window(run, i))
+            for k, v in (("ids", fev.ids), ("valid", fev.valid), ("p", out.p), ("q", out.q)):
+                rows[k].append(v)
+            if i > 1:                 # the pipelined pull read in step i is frame i - 1's
+                counters.append(drv.last_counters.copy())
     drv.flush_stream()
+    counters.append(drv.last_counters.copy())
     drv.close()
     res = {k: torch.stack(v).cpu().numpy() for k, v in rows.items()}
     res["p"], res["q"] = res["p"].astype("float64"), res["q"].astype("float64")
-    return dict(res, klt=drv.vopts.klt, fev=fev)
+    return dict(res, counters=np.stack(counters), stages=stages, klt=drv.vopts.klt, fev=fev)
 
 
-def _mc_cpu_reference(arrays: dict, images, sampler: str, wire: str) -> dict:
+def _mc_cpu_reference(arrays: dict, images, sampler: str, wire: str, dtype=torch.float64, record: int = 0) -> dict:
     """Streams 0-1 of the vision Monte-Carlo's ON arm through the port on the
-    CPU (frontend f32, filter f64), with the card's IMU draws, the script's
-    image noise and the driver's sampler and wire as given; runs in a
-    ``CpuRefs`` worker."""
+    CPU (frontend f32, filter in ``dtype``), with the card's IMU draws, the
+    script's image noise and the driver's sampler and wire as given, the
+    stages of its first ``record`` frames recorded; runs in a ``CpuRefs``
+    worker."""
     from ov_plane_tpu_torch.scripts import run_mc_vision as mc
 
     cfg, _ = mc.scene_config("tabletop", False)
-    res = _mc_arm(cfg, _from_host(arrays), images, torch.float64, "cpu", sampler, wire)
-    return {k: v for k, v in res.items() if k in ("ids", "valid", "p", "q")}
+    res = _mc_arm(cfg, _from_host(arrays), images, dtype, "cpu", sampler, wire, record)
+    return {k: v for k, v in res.items() if k in ("ids", "valid", "p", "q", "counters", "stages")}
 
 
-def _mc_agreement(tag, what, card, ref, n_ref):
-    """Track ids and valid flags and the pose of streams 0-1 over n_ref frames,
-    card against the CPU reference (dicts or runs of run_mc_vision)."""
+def _mc_agreement(tag, what, card, ref, n_ref, cpu_filter="f64"):
+    """Streams 0-1 of the ON arm over n_ref frames, card against the CPU
+    reference (dicts or runs of run_mc_vision): the share of slot-frames
+    with equal track ids and valid flags, the pose's largest difference, and
+    the frames on which the plane counters (inits, constraint updates,
+    planes in the state) of both streams are equal."""
     import numpy as np
 
     card = card._asdict() if hasattr(card, "_asdict") else card
@@ -2267,26 +2336,37 @@ def _mc_agreement(tag, what, card, ref, n_ref):
     dp = float(np.abs(card["p"][:n_ref, :2] - ref["p"]).max())
     dq = float(np.abs(card["q"][:n_ref, :2] - ref["q"]).max())
     first = int(np.argmin(same.reshape(n_ref, -1).all(axis=1))) + 1 if not same.all() else None
-    print(f"{tag} {what}, card f32 vs CPU (frontend f32, filter f64), 2 streams x {n_ref} frames: ids and valid "
-          f"equal on {int(same.sum())} of {same.size} slot-frames ({100 * same.mean():.2f}%; first frame with a "
-          f"difference {first}); max|dp|={dp:.3e} m max|dq|={dq:.3e}")
-    return float(same.mean()), dp, dq
+    plane_card, plane_cpu = card["counters"][:n_ref, :2, 0:3], ref["counters"][..., 0:3]
+    planes_equal = int((plane_card == plane_cpu).all(axis=(1, 2)).sum())
+
+    def first_plane(c):
+        return [int(np.argmax(c[:, k, 2] > 0)) + 1 if (c[:, k, 2] > 0).any() else None for k in range(2)]
+
+    print(f"{tag} {what}, card f32 vs CPU (frontend f32, filter {cpu_filter}), 2 streams x {n_ref} frames: ids "
+          f"and valid equal on {int(same.sum())} of {same.size} slot-frames ({100 * same.mean():.2f}%; first frame "
+          f"with a difference {first}); plane counters (inits, constraints, planes) equal on {planes_equal} of "
+          f"{n_ref} frames (card sums {plane_card.sum(axis=(0, 1)).astype(int).tolist()}, CPU "
+          f"{plane_cpu.sum(axis=(0, 1)).astype(int).tolist()}; first plane in the state card "
+          f"{first_plane(plane_card)}, CPU {first_plane(plane_cpu)}); max|dp|={dp:.3e} m max|dq|={dq:.3e}")
+    return float(same.mean()), dp, dq, planes_equal
 
 
 def _klt_trace(tag, cfg, sim, images):
-    """Where the script's own arm (u8 wire, ``mm_bf16``) departs from its CPU
-    run: frame 2's KLT stage on identical inputs on the card and on the CPU,
-    under each sampler. The tracker state after frame 1 (its points and
-    mask) comes from the CPU run, the images are the script's frames 1-2 of
-    streams 0-1 (the scene's histogram method is NONE), the flow prior is
-    zero; prints the pyramids' and the
-    tracked points' largest difference and the track status flips."""
+    """Frame 2's KLT stage of the ON arm on identical inputs on the card and
+    on the CPU, under the exact sampler and the script's own (``mm_bf16``).
+    The tracker state after frame 1 (its points and mask) comes from the CPU
+    run, the images are the script's frames 1-2 of streams 0-1 (the scene's
+    histogram method is NONE), the flow prior is zero; prints the pyramids'
+    and the tracked points' largest difference and the track status flips,
+    and returns {sampler: (status flips, max|Δp1| px where both track)}.
+    The exact sampler sums in f32 in each device's order (about 4e-5 px
+    apart); ``mm_bf16`` in f64 (equal bit for bit)."""
     from ov_plane_tpu_torch.frontend import klt as fklt
 
     one = _mc_arm(cfg, _from_host(_to_host(sim, 2)), images[:1, :2], torch.float64, "cpu", "mm", "f32")
     opts, fev = one["klt"], one["fev"]
     mask = fev.valid & fev.has_prev[:, None]
-    res = {}
+    res, out = {}, {}
     for sampler in ("mm", "mm_bf16"):
         for dev in ("cuda", "cpu"):
             pyr = [fklt.prepare_pyramid(fklt.build_pyramid(torch.from_numpy(images[i, :2]).to(dev), opts.levels),
@@ -2297,9 +2377,58 @@ def _klt_trace(tag, cfg, sim, images):
         dpyr = max(float((a.cpu() - b).abs().max()) for a, b in zip(pyr_g, pyr_c))
         both = ok_g & ok_c
         dp1 = float((p_g - p_c).norm(dim=-1)[both].max()) if both.any() else 0.0
+        flips = int((ok_g != ok_c).sum())
+        out[sampler] = (flips, dp1)
         print(f"{tag} frame-2 KLT on identical inputs, {sampler}: pyramids max|Δ| {dpyr:.3e}; of "
-              f"{int(mask.sum())} tracked points, status differs on {int((ok_g != ok_c).sum())} (card ok "
-              f"{int(ok_g.sum())}, CPU ok {int(ok_c.sum())}); max|Δp1| {dp1:.3e} px where both are ok")
+              f"{int(mask.sum())} tracked points, status differs on {flips} (card ok "
+              f"{int(ok_g.sum())}, CPU ok {int(ok_c.sum())}); max|Δp1| {dp1:.3e} px where both are ok"
+              + (f" (limit {KLT_TRACE_LIMIT})" if sampler == "mm_bf16" else ""))
+    return out
+
+
+def _stage_trace(tag, card: list, cpu: list, part: int | None, what: str = "card vs CPU"):
+    """Streams 0-1's recorded frontend stages (``_stage_recorder``) of two
+    runs (``what``), frame by frame up to ``part`` (the first frame whose
+    tracks differ, 1-based): the input tracks, the flow prior, the KLT's
+    points and status, the RANSAC inliers, the FAST corners and the
+    triangulations. Prints each frame and returns (frame, stage) of the
+    first decision that differs, or None within the recorded frames."""
+    import numpy as np
+
+    def dmax(a, b, m):
+        return float(np.abs(a - b)[m].max()) if m.any() else 0.0
+
+    for k in range(min(len(card), len(cpu), part or len(card))):
+        a, b = card[k], cpu[k]
+        (m_a, f_a), (m_b, f_b) = a["flow prior"], b["flow prior"]
+        (p_a, ok_a), (p_b, ok_b) = a["KLT"], b["KLT"]
+        (n_a, nok_a), (n_b, nok_b) = a["FAST"], b["FAST"]
+        (t_a, tok_a), (t_b, tok_b) = a["triangulation"], b["triangulation"]
+        m, both = m_a & m_b, ok_a & ok_b
+        flips = {"flow prior": int((m_a != m_b).sum()), "KLT": int((ok_a != ok_b)[m].sum()),
+                 "RANSAC": int((a["RANSAC"][0] != b["RANSAC"][0])[both].sum()),
+                 "FAST": int((nok_a != nok_b).sum()), "triangulation": int((tok_a != tok_b).sum())}
+        print(f"{tag} stage trace, frame {k + 1}, {what}: input tracks differ on {flips['flow prior']} slots; "
+              f"flow prior max|Δ| {dmax(f_a, f_b, m):.3e} px; KLT max|Δp1| {dmax(p_a, p_b, both):.3e} px, "
+              f"status flips {flips['KLT']}; RANSAC inlier flips {flips['RANSAC']}; FAST corner flips "
+              f"{flips['FAST']} (max|Δuv| {dmax(n_a, n_b, nok_a & nok_b):.3e} px); triangulation flips "
+              f"{flips['triangulation']} (max|Δp3| {dmax(t_a, t_b, tok_a & tok_b):.3e} m)")
+        first = next((name for name in TRACE_STAGES if flips[name]), None)
+        if first is not None:
+            return k + 1, first
+    return None
+
+
+def _ransac_on_both(tag, frame: int, rec: dict):
+    """The RANSAC of one recorded frame (streams 0-1) rerun on its recorded
+    inputs on the card and on the CPU; prints the inlier flips."""
+    from ov_plane_tpu_torch.frontend.ransac import gyro_ransac
+
+    *args, opts = rec["RANSAC inputs"]
+    inl = {dev: gyro_ransac(*(torch.from_numpy(a).to(dev) for a in args), opts)[0].cpu() for dev in ("cuda", "cpu")}
+    flips = int((inl["cuda"] != inl["cpu"]).sum())
+    print(f"{tag} frame {frame}'s RANSAC on identical inputs (the card run's), card vs CPU: inlier flips {flips}, "
+          f"recorded flips against the card run {int((inl['cuda'].numpy() != rec['RANSAC'][0]).sum())}")
 
 
 def drive_mc_vision(refs: CpuRefs):
@@ -2324,9 +2453,16 @@ def drive_mc_vision(refs: CpuRefs):
     launches = {"gram_reduce": kernels.gram_reduce.launches, "kalman_downdate": kernels.kalman_downdate.launches}
     on, off = runs[("sparse", "ON")], runs[("sparse", "OFF")]
     n = on.p.shape[0]
+    plane_work = {}
     for arm, run in (("ON", on), ("OFF", off)):
+        c = run.counters                                   # [n, seeds, 9]
+        streams = c[..., 2].max(axis=0) > 0
+        first = int(np.argmax(c[..., 2].max(axis=1) > 0)) + 1 if streams.any() else None
+        plane_work[arm] = (int(c[..., 1].sum()), int(c[..., 2].max()))
         print(f"{tag} {arm}: {MC_SEEDS}x{n} stream-frames in {run.wall_s:.3f} s: {MC_SEEDS * n / run.wall_s:.2f} "
-              f"stream-frames/s; constraint updates {run.n_constraints}; per-seed ATE (m, deg) "
+              f"stream-frames/s; constraint updates {plane_work[arm][0]} over the run ({run.n_constraints} in the "
+              f"last pull, as the script counts them); planes in the state at most {plane_work[arm][1]}, on "
+              f"{int(streams.sum())} of {MC_SEEDS} streams (first at frame {first}); per-seed ATE (m, deg) "
               + " ".join(f"({a:.4f}, {o:.3f})" for a, o in run.ates))
         if not (np.isfinite(run.p).all() and np.isfinite(run.q).all() and np.isfinite(run.ates).all()):
             raise RuntimeError(f"{tag} the {arm} arm is not finite")
@@ -2335,6 +2471,12 @@ def drive_mc_vision(refs: CpuRefs):
     if launches != expect:
         raise RuntimeError(f"{tag} launches {launches}, not {expect} (ON {MC_PER_FRAME['ON']}, "
                            f"OFF {MC_PER_FRAME['OFF']} per frame)")
+    if not (plane_work["ON"][0] > 0 and plane_work["ON"][1] > 0):
+        raise RuntimeError(f"{tag} the ON arm made no constraint update or put no plane in the state")
+    if plane_work["OFF"][0] != 0:
+        raise RuntimeError(f"{tag} the OFF arm made plane constraint updates")
+    if np.array_equal(np.asarray(on.ates), np.asarray(off.ates)):
+        raise RuntimeError(f"{tag} the ON and OFF arms give the same per-seed ATEs")
 
     # The same inputs as the script's ON arm, remade here: its scene, its
     # IMU draws and its image noise for the first MC_REF frames.
@@ -2343,24 +2485,52 @@ def drive_mc_vision(refs: CpuRefs):
     sim = mc.noisy_streams(cfg, truth, MC_SEEDS, 17)
     frames = mc.render_frames(cfg, truth, render, MC_REF, "cuda")
     images = np.stack(list(mc.noisy_images(frames, MC_SEEDS, 17)))           # [MC_REF, MC_SEEDS, H, W]
-    # The script's own arm (u8 wire, the mm_bf16 sampler its frames resolve
-    # to) is printed against its CPU run, and frame 2's KLT on identical
-    # inputs locates where they part. The card's numerics are held on the
-    # same arm with the exact mm sampler and the f32 wire.
+    # Streams 0-1 of the script's own arm (u8 wire, the mm_bf16 sampler its
+    # frames resolve to) and of a rerun with the exact mm sampler on the f32
+    # wire against their CPU runs (filter f64; the script's arm also against
+    # the filter in f32); frame 2's KLT on identical inputs shows the
+    # tracker's agreement alone, and a rerun of the script's arm records its
+    # first MC_TRACE frames' stages for the stage trace.
     exact = _mc_arm(cfg, sim, images, torch.float32, "cuda", "mm", "f32")
-    jobs = {w: refs.submit(f"mc-vision {w[0]}", _mc_cpu_reference, _to_host(sim, 2), images[:, :2], *w)
-            for w in (("auto", "auto"), ("mm", "f32"))}
-    _klt_trace(tag, cfg, sim, images)
+    traced = _mc_arm(cfg, sim, images[:MC_TRACE], torch.float32, "cuda", "auto", "auto", MC_TRACE)
+    same = all(np.array_equal(traced[k], getattr(on, k)[:MC_TRACE]) for k in ("ids", "valid", "p", "q"))
+    print(f"{tag} the traced rerun of the script's ON arm, its first {MC_TRACE} frames: ids, valid flags and pose "
+          f"{'bitwise equal to' if same else 'apart from'} the script's run")
+    host = _to_host(sim, 2)
+    jobs = {("auto", "f64"): refs.submit("mc-vision auto", _mc_cpu_reference, host, images[:, :2], "auto", "auto",
+                                         torch.float64, MC_TRACE),
+            ("mm", "f64"): refs.submit("mc-vision mm", _mc_cpu_reference, host, images[:, :2], "mm", "f32"),
+            ("auto", "f32"): refs.submit("mc-vision auto f32", _mc_cpu_reference, host, images[:, :2], "auto",
+                                         "auto", torch.float32)}
+    trace = _klt_trace(tag, cfg, sim, images)
+    flips, dp1 = trace["mm_bf16"]
+    if flips or dp1 > KLT_TRACE_LIMIT:
+        raise RuntimeError(f"{tag} frame 2's KLT under mm_bf16 on identical inputs differs between the card and "
+                           f"the CPU: {flips} status flips, max|Δp1| {dp1:.3e} px")
     info = dict(stream_frames_per_s=2 * MC_SEEDS * n / (on.wall_s + off.wall_s), wall_s=wall, n_frames=n,
                 on_rate=MC_SEEDS * n / on.wall_s, off_rate=MC_SEEDS * n / off.wall_s)
 
     def finish():
-        _mc_agreement(tag, "ON arm as the script ran it (u8, mm_bf16)", on, jobs[("auto", "auto")].result(), MC_REF)
-        frac, dp, dq = _mc_agreement(tag, "ON arm, exact sampler (f32 wire, mm)", exact,
-                                     jobs[("mm", "f32")].result(), MC_REF)
-        if not (frac >= 0.99 and dp <= 1e-2 and dq <= 1e-3):
-            raise RuntimeError(f"{tag} the card's ON arm disagrees with the CPU reference")
-        info.update(ids_equal=frac, card_vs_cpu=(dp, dq))
+        held = {w: _mc_agreement(tag, what, card, jobs[w].result(), MC_REF, w[1])
+                for w, what, card in ((("mm", "f64"), "ON arm, exact sampler (f32 wire, mm)", exact),
+                                      (("auto", "f64"), "ON arm as the script ran it (u8, mm_bf16)", on),
+                                      (("auto", "f32"), "ON arm as the script ran it (u8, mm_bf16)", on))}
+        ok = {w: frac >= 0.99 and dp <= 1e-2 and dq <= 1e-3 and planes >= MC_PLANES_MIN_EQUAL
+              for w, (frac, dp, dq, planes) in held.items()}
+        info.update(card_vs_cpu=held)
+        if not ok["auto", "f64"]:
+            # Where the script's arm parts from its CPU run: its recorded stages.
+            ref = jobs["auto", "f64"].result()
+            same = (traced["ids"][:, :2] == ref["ids"][:MC_TRACE]) & (traced["valid"][:, :2] == ref["valid"][:MC_TRACE])
+            part = int(np.argmin(same.reshape(MC_TRACE, -1).all(axis=1))) + 1 if not same.all() else None
+            found = _stage_trace(tag, traced["stages"], ref["stages"], part)
+            if found:
+                _ransac_on_both(tag, found[0], traced["stages"][found[0] - 1])
+            print(f"{tag} the script's arm parts from its CPU run (filter f64): tracks first differ at frame {part} "
+                  f"of the {MC_TRACE} traced; first differing decision: "
+                  + (f"frame {found[0]}, stage {found[1]}" if found else "none in the traced frames"))
+        if not ok["mm", "f64"]:
+            raise RuntimeError(f"{tag} the card's ON arm (exact sampler) disagrees with the CPU reference")
 
     info["finish"] = finish
     return n, launches, info
@@ -3170,9 +3340,9 @@ PHASES = {
 # beside the other lanes. A phase that reads another's result follows it
 # in its lane.
 LANES = (
-    ("point", "batched-replay", "profiled", "plane", "ms-pl", "vision", "tabletop", "chain"),
-    ("replay", "bag", "sweep", "calib", "zupt"),
-    ("anchored", "ransac-gt", "mc-vision", "klt-samplers", "viz", "sharded"),
+    ("point", "batched-replay", "profiled", "plane", "ms-pl", "vision", "tabletop", "chain", "anchored"),
+    ("replay", "bag", "sweep", "zupt"),
+    ("calib", "ransac-gt", "mc-vision", "klt-samplers", "viz", "sharded"),
 )
 LANE_TIMEOUT = 1000     # seconds a lane may take, its CPU references included
 

@@ -159,6 +159,22 @@ def sample_patches(padded: torch.Tensor, centers: torch.Tensor, w: int, sampler:
     return a * (1 - fx) * (1 - fy) + b * fx * (1 - fy) + c * (1 - fx) * fy + d * fx * fy
 
 
+def _patch_sum(x: torch.Tensor, ordered: bool, mean: bool = False) -> torch.Tensor:
+    """Sum (or mean) over the patch axes of [..., P, P] in the patch's type.
+
+    ``ordered`` (the bf16 samplers): the same f32 whatever order a device
+    reduces in: the f32 terms are added in f64, then rounded once. A bf16
+    sampler rounds the patch offset to steps of 2^-8 px, so an f32 ulp of
+    the Newton step, which a CUDA reduction and the CPU's give apart, can
+    move a track by a step. Otherwise the f32 sum as the JAX package takes
+    it (``klt.py:222-224, 237-238, 249``): the exact samplers are continuous
+    in the sums, and their runs part by f32 ulps only."""
+    if ordered:
+        acc = x.to(torch.float64)
+        return (acc.mean(dim=(-2, -1)) if mean else acc.sum(dim=(-2, -1))).to(x.dtype)
+    return x.mean(dim=(-2, -1)) if mean else x.sum(dim=(-2, -1))
+
+
 def track_level(img0, gx0, gy0, img1, pts0, guess, opts: KltOptions):
     """All features of all streams at one pyramid level: (flow, ok, err).
 
@@ -168,10 +184,10 @@ def track_level(img0, gx0, gy0, img1, pts0, guess, opts: KltOptions):
     iterations)."""
     w = opts.window
     tpl = sample_patches(torch.stack([img0, gx0, gy0], dim=1), pts0, w, opts.sampler)
-    t_patch, gx_p, gy_p = tpl[:, 0], tpl[:, 1], tpl[:, 2]            # [B, N, P, P]
-    gxx = (gx_p * gx_p).sum(dim=(-2, -1))
-    gxy = (gx_p * gy_p).sum(dim=(-2, -1))
-    gyy = (gy_p * gy_p).sum(dim=(-2, -1))
+    t_patch, g_p = tpl[:, 0], tpl[:, 1:]                           # [B, N, P, P], [B, 2, N, P, P]
+    ordered = opts.sampler.endswith("_bf16")
+    G = _patch_sum(g_p[:, :, None] * g_p[:, None], ordered)          # [B, 2, 2, N]
+    gxx, gxy, gyy = G[:, 0, 0], G[:, 0, 1], G[:, 1, 1]
     det = gxx * gyy - gxy * gxy
     min_eig = 0.5 * (gxx + gyy - torch.sqrt((gxx - gyy) ** 2 + 4 * gxy**2))
     n_px = (2 * w + 1) ** 2
@@ -182,15 +198,13 @@ def track_level(img0, gx0, gy0, img1, pts0, guess, opts: KltOptions):
     flow, active = guess, ok
     for _ in range(opts.iters):
         cur = sample_patches(img1s, pts0 + flow, w, opts.sampler)[:, 0]
-        di = cur - t_patch
-        bx = (di * gx_p).sum(dim=(-2, -1))
-        by = (di * gy_p).sum(dim=(-2, -1))
+        bx, by = _patch_sum((cur - t_patch)[:, None] * g_p, ordered).unbind(1)
         delta = torch.stack([(gyy * bx - gxy * by) / det_s, (-gxy * bx + gxx * by) / det_s], dim=-1)
         step_ok = torch.isfinite(delta).all(dim=-1) & ((delta * delta).sum(dim=-1) <= max_step2)
         active = active & step_ok
         flow = torch.where(active[..., None], flow - delta, flow)
     final = sample_patches(img1s, pts0 + flow, w, opts.sampler)[:, 0]
-    err = torch.abs(final - t_patch).mean(dim=(-2, -1))
+    err = _patch_sum(torch.abs(final - t_patch), ordered, mean=True)
     return flow, ok, err
 
 

@@ -144,7 +144,10 @@ class VariantRun(NamedTuple):
     """One arm's batched run: per-seed (ATE pos m, ATE ori deg), the
     estimates p [n, B, 3] and q [n, B, 4], the frontend's track ids and
     valid flags after each frame [n, B, cap], the constraint updates the
-    pulls counted, and the wall seconds of the frame loop."""
+    last pull counted (as the JAX script counts them), the wall seconds of
+    the frame loop, and each frame's nine pulled counters [n, B, 9] (the
+    driver's ``last_counters``: plane inits, constraint updates, planes in
+    the state, ...)."""
     ates: list
     p: np.ndarray
     q: np.ndarray
@@ -152,6 +155,7 @@ class VariantRun(NamedTuple):
     valid: np.ndarray
     n_constraints: int
     wall_s: float
+    counters: np.ndarray
 
 
 def noisy_streams(cfg, truth: simulator.SimTruth, B: int, seed: int) -> simulator.SimData:
@@ -201,7 +205,7 @@ def run_variant(cfg0, truth: simulator.SimTruth, frames: np.ndarray, B: int, see
     n = len(frames)
     W = cfg.tpu.max_imu_per_frame
     images = Prefetcher(noisy_images(frames, B, seed, img_noise), stage=drv.stage_image, depth=2)
-    ps, qs, ids, valid = [], [], [], []
+    ps, qs, ids, valid, counters = [], [], [], [], []
     t0 = time.time()
     for i in range(1, n + 1):
         s0 = int(starts[i])
@@ -218,7 +222,10 @@ def run_variant(cfg0, truth: simulator.SimTruth, frames: np.ndarray, B: int, see
         qs.append(out.q)
         ids.append(fev.ids)
         valid.append(fev.valid)
+        if i > 1:                 # the pipelined pull read in step i is frame i - 1's
+            counters.append(drv.last_counters.copy())
     drv.flush_stream()
+    counters.append(drv.last_counters.copy())
     drv.close()
     images.close()
     p_all, q_all = host(torch.stack(ps)), host(torch.stack(qs))
@@ -232,7 +239,7 @@ def run_variant(cfg0, truth: simulator.SimTruth, frames: np.ndarray, B: int, see
     for b in range(B):
         ap, ao, _, _ = ate_posyaw(torch.as_tensor(p_all[:, b]), torch.as_tensor(q_all[:, b]), gt_p, gt_q)
         ates.append((float(ap), float(ao)))
-    return VariantRun(ates, p_all, q_all, ids_all, valid_all, n_constr, wall)
+    return VariantRun(ates, p_all, q_all, ids_all, valid_all, n_constr, wall, np.stack(counters))
 
 
 def paired_stats(on, off):

@@ -328,6 +328,38 @@ def test_klt_track(frames, sampler, dtype, fb):
             assert d.max() <= (1e-9 if dtype == "float64" else 1e-3)
 
 
+@pytest.mark.parametrize("sampler", ["mm_bf16", "rowmm_bf16"])
+def test_klt_track_independent_of_the_patch_sum_order(frames, sampler, monkeypatch):
+    """Under the bf16 samplers the tracker's patch sums give the same f32
+    whatever order a device takes them in: with every sampled patch
+    transposed and mirrored, so that each sum meets its 225 products in
+    another order, ``track`` returns the same p1 and ok bit for bit
+    (forward-backward check on). A CUDA reduction runs in another order than
+    the CPU's, and an f32 ulp of the Newton step can cross a 2^-8 px step of
+    the bf16 offset."""
+    imgs = torch.as_tensor(frames.astype(np.float32))
+    opts = t_klt.KltOptions(levels=4, window=7, iters=8, fb_check=True, sampler=sampler)
+    rng = np.random.default_rng(12)
+    # Textured points: the 96 cells of an 8-px grid with the most gradient energy in a 15×15 window.
+    gx, gy = t_klt.scharr_gradients(imgs[:1])
+    energy = torch.nn.functional.avg_pool2d((gx * gx + gy * gy)[None], 15, stride=1, padding=7)[0, 0]
+    cells = energy[12:228:8, 12:308:8]
+    top = torch.topk(cells.flatten(), 96).indices
+    grid = torch.stack([12 + 8 * (top % cells.shape[1]), 12 + 8 * (top // cells.shape[1])], -1).numpy()
+    pts = torch.as_tensor((grid + rng.uniform(-0.5, 0.5, (2, 96, 2))).astype(np.float32))
+    mask = torch.as_tensor(rng.random((2, 96)) < 0.9)
+    flow0 = torch.as_tensor(rng.normal(0, 1.0, (2, 96, 2)).astype(np.float32))
+    prep = [t_klt.prepare_pyramid(t_klt.build_pyramid(imgs[[k, 1 - k]], 4), 7) for k in (0, 1)]
+    p1, ok = t_klt.track(prep[0], prep[1], pts, mask, opts, flow0)
+    sample = t_klt.sample_patches
+    monkeypatch.setattr(t_klt, "sample_patches",
+                        lambda *a: sample(*a).transpose(-2, -1).flip(-1).contiguous())
+    p1_perm, ok_perm = t_klt.track(prep[0], prep[1], pts, mask, opts, flow0)
+    assert int(ok.sum()) > 60
+    assert torch.equal(ok_perm, ok)
+    assert torch.equal(p1_perm, p1), float((p1_perm - p1).abs().max())
+
+
 def test_bf16_sampler_matches_jax():
     """The bf16 roundings of the JAX one-hot GEMM sampler, bit for bit."""
     rng = np.random.default_rng(10)
