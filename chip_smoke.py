@@ -817,8 +817,11 @@ def _raw_events(prof):
     """(name, on the device, start ns, duration ns) of every event of a
     profile, read from the profiler's raw results: building ``prof.events()``
     takes minutes for a few frames of ~60k kernels each."""
-    return [(e.name(), e.device_type().name == "CUDA", e.start_ns(), e.duration_ns())
-            for e in prof.profiler.kineto_results.events()]
+    events = [(e.name(), e.device_type().name == "CUDA", e.start_ns(), e.duration_ns(), e.is_user_annotation())
+              for e in prof.profiler.kineto_results.events()]
+    # A range's device-side annotation (a range open around a kernel, such
+    # as the step's own ``manager.step``) is no device work.
+    return [(name, dev, t0, dur) for name, dev, t0, dur, note in events if not (dev and note)]
 
 
 PROFILE_FRAMES = 1      # frames of each path's profile window
@@ -853,9 +856,7 @@ def report_profile(tag, prof, ranges, first, n, frame_wall_ms, wall_ms):
     (inflated by the profiler) and kernel launches, the largest kernels."""
     t = time.time()
     events = _raw_events(prof)
-    # A range's host span and its device annotation share one name: the
-    # kernels are the device events with other names.
-    kern = [(name, dur) for name, dev, _, dur in events if dev and name not in ranges]
+    kern = [(name, dur) for name, dev, _, dur in events if dev]
     busy_ms = sum(dur for _, dur in kern) / 1e6 / n
     if busy_ms <= 0:
         print(f"{tag} the profiler recorded no device time: device idle share not measured")

@@ -34,7 +34,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ov_plane_tpu_torch.frontend import fast as ffast
 from ov_plane_tpu_torch.frontend import imageproc as ip
@@ -46,6 +45,7 @@ from ov_plane_tpu_torch.models.manager import FrameData, VioEngine, step
 from ov_plane_tpu_torch.ops import cams
 from ov_plane_tpu_torch.ops.quat import quat_2_rot
 from ov_plane_tpu_torch.state.vio_state import TensorTree
+from ov_plane_tpu_torch.utils.trace import span
 
 
 class FusedVisionOptions(NamedTuple):
@@ -186,11 +186,11 @@ def fused_vision_step(eng: VioEngine, vopts: FusedVisionOptions, state, bank, fe
     dev = img.device
     B, cap = fev.ids.shape
 
-    with record_function("frontend.preprocess"):
+    with span("frontend.preprocess"):
         img_j = ip.preprocess(img.to(f32), vopts.histogram_method)
         pyr = fklt.prepare_pyramid(fklt.build_pyramid(img_j, vopts.klt.levels), vopts.klt.window)
 
-    with record_function("frontend.triangulate"):
+    with span("frontend.triangulate"):
         # Gyro-integrated inter-frame camera rotation.
         R_imu = integrate_gyro(imu_t.to(f32), imu_w.to(f32), state.t.to(f32), t_new.to(f32),
                                state.imu[:, 10:13].to(f32))
@@ -225,7 +225,7 @@ def fused_vision_step(eng: VioEngine, vopts: FusedVisionOptions, state, bank, fe
             tri_n=fev.tri_n + acc.to(torch.int32),
         )
 
-    with record_function("frontend.klt"):
+    with span("frontend.klt"):
         # Predicted-pose LK flow prior.
         R_GtoI_pi = quat_2_rot(state.imu[:, 0:4]).to(f32)
         R_GtoC_pi = R_ItoC @ R_GtoI_pi
@@ -264,7 +264,7 @@ def fused_vision_step(eng: VioEngine, vopts: FusedVisionOptions, state, bank, fe
         track_mask = fev.valid & fev.has_prev[:, None]
         p1, ok = fklt.track(fev.pyr, pyr, fev.uv, track_mask, vopts.klt, init_flow)
 
-    with record_function("frontend.ransac"):
+    with span("frontend.ransac"):
         uvn_cur = cams.undistort(p1, zeta, vopts.cam_model)
         inl = gyro_ransac(uvn_prev, uvn_cur, ok, R_cam, vopts.ransac)[0]
         ok = torch.where((ok.sum(dim=-1) >= 8)[:, None], ok & inl, ok)
@@ -272,7 +272,7 @@ def fused_vision_step(eng: VioEngine, vopts: FusedVisionOptions, state, bank, fe
         valid = ok
         ids = torch.where(valid, fev.ids, torch.full_like(fev.ids, -1))
 
-    with record_function("frontend.fast"):
+    with span("frontend.fast"):
         # FAST top-up with in-step slot allocation: the r-th free slot takes
         # the r-th detection, up to the target count.
         n_needed = torch.clamp(vopts.num_target - valid.sum(dim=-1), 0, cap)
@@ -296,7 +296,7 @@ def fused_vision_step(eng: VioEngine, vopts: FusedVisionOptions, state, bank, fe
             tri_n=torch.where(rs, torch.zeros_like(fev.tri_n), fev.tri_n),
         )
 
-    with record_function("frontend.triangulate"):
+    with span("frontend.triangulate"):
         p3, ok3 = _solve_tracks(fev, vopts, R_prevC, p_prevC)
         ok3 = ok3 & have_clone[:, None]
         p3 = torch.where(ok3[..., None], p3, torch.zeros_like(p3))
@@ -490,7 +490,8 @@ class FusedVisionDriver:
         self.last_counters = np.zeros((n, 9), np.float32)   # the 9 counters of the last pull read
         # The packed pull read last: [B, cap+3, 8] of one frame, or [K, B, cap+3, 8] of a chunk.
         self.last_pull = None
-        # Host seconds of the last step (TIME_KEYS, as the JAX driver names them).
+        # Seconds of the last step (TIME_KEYS, as the JAX driver names them):
+        # host seconds, but for ``device`` (:meth:`_finish`).
         self.last_times = dict.fromkeys(self.TIME_KEYS, 0.0)
         # Per stream, from the last pull read: the detector's statistics row
         # (PlaneStatsRecorder columns) and the tracks (ids, uv, p3, ok3).
@@ -514,7 +515,9 @@ class FusedVisionDriver:
                                  for _ in range(2 if K > 1 else 0)]
         self._frame = 0
         self._chunk = 0
-        self._pending = None      # (pinned pull buffer, CUDA event or None) of the last dispatch
+        # (pinned pull buffer, (the pull's CUDA event, the step's start
+        # event), or None on the CPU) of the last dispatch.
+        self._pending = None
         self.n_pulls = 0          # pulls read: one per step (frame or chunk) after the first
 
     @property
@@ -602,7 +605,7 @@ class FusedVisionDriver:
     def _run_plane_detectors(self, ids, uv, valid, p3, ok3, R_GtoC, p_CinG):
         ids = np.where(valid, ids, -1)
         ok = ok3 & valid
-        with record_function("host.plane_detect"):
+        with span("host.plane_detect"):
             t0 = time.perf_counter()
             results = self.tracker.update_batch(ids, uv, p3, ok, R_GtoC, p_CinG)
             total = time.perf_counter() - t0
@@ -620,12 +623,17 @@ class FusedVisionDriver:
         """Wait for a step's pull, unpack it and run the plane detectors on it,
         frame by frame for a chunk's pull [K, B, cap+3, 8]: gauges (counters
         2, 4-7) take the chunk's maximum, event counts (0, 1, 3, 8) add up.
-        Returns its host seconds (pull_wait, unpack, host_plane)."""
-        buf, event = pending
+        Returns its host seconds (pull_wait, unpack, host_plane) and, on a
+        card, the step's device seconds from its start event to the end of
+        the pull's copy (device)."""
+        buf, events = pending
         t0 = time.perf_counter()
-        with record_function("pull"):
-            if event is not None:
+        times = {}
+        with span("pull"):
+            if events is not None:
+                event, start = events
                 event.synchronize()
+                times["device"] = start.elapsed_time(event) / 1e3
             self.n_pulls += 1
             t1 = time.perf_counter()
             self.last_pull = buf.numpy().copy()
@@ -645,11 +653,17 @@ class FusedVisionDriver:
                 total = total + counters
                 total[:, GAUGES] = gauges[:, GAUGES]
         self.last_counters = total
-        return {"pull_wait": t1 - t0, "unpack": time.perf_counter() - t1 - t_det, "host_plane": t_det}
+        times.update(pull_wait=t1 - t0, unpack=time.perf_counter() - t1 - t_det, host_plane=t_det)
+        return times
 
     def _finish(self, pending, pipelined: bool, times: dict):
         """Read the previous step's pull (pipelined) or this step's, and set
-        ``last_times`` (``device`` is the step's host time up to its pull)."""
+        ``last_times``. ``device`` is, on a card, the device's elapsed
+        seconds of the step whose pull was read (the previous one when
+        pipelined; 0 until a pull is read): from an event recorded before
+        the step's first enqueued work to the end of its pull's copy, read
+        after the pull's own wait. On the CPU, where the step runs inside
+        its enqueue, it is the step's host seconds up to its pull."""
         prev, self._pending = self._pending, pending
         if not pipelined:
             if prev is not None:        # a pipelined step's pull still pending: read it first
@@ -659,17 +673,28 @@ class FusedVisionDriver:
             times.update(self._consume(prev))
         else:
             self.last_counters = np.zeros_like(self.last_counters)
-        times["device"] = times["wire_image"] + times["pack_payload"] + times["payload_put"] + \
-            times["dispatch_enqueue"] + times["pull_wait"]
+        if self.device.type != "cuda":
+            times["device"] = times["wire_image"] + times["pack_payload"] + times["payload_put"] + \
+                times["dispatch_enqueue"] + times["pull_wait"]
         self.last_times = times
 
-    def _record_pull(self, pull: torch.Tensor, pull_host: torch.Tensor):
-        """Start the pull's copy into its pinned buffer; returns (buffer, event)."""
+    def _start_event(self):
+        """On a card, a timing event recorded before a step enqueues its work."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def _record_pull(self, pull: torch.Tensor, pull_host: torch.Tensor, start):
+        """Start the pull's copy into its pinned buffer; returns (buffer,
+        (the pull's event, the step's start event)), or (buffer, None) on
+        the CPU."""
         if self.device.type == "cuda":
             pull_host.copy_(pull, non_blocking=True)
-            event = torch.cuda.Event()
+            event = torch.cuda.Event(enable_timing=True)
             event.record()
-            return pull_host, event
+            return pull_host, (event, start)
         pull_host.copy_(pull)
         return pull_host, None
 
@@ -683,6 +708,7 @@ class FusedVisionDriver:
         the frame's own pull is read before returning (labels lag one
         frame, as the reference's TrackPlane detects on the previous image)."""
         times = dict.fromkeys(self.TIME_KEYS, 0.0)
+        start = self._start_event()
         t0 = time.perf_counter()
         img_w = imgs if isinstance(imgs, torch.Tensor) and imgs.device == self.device else self.stage_image(imgs)
         t_img = time.perf_counter()
@@ -697,7 +723,7 @@ class FusedVisionDriver:
         (img, it, iw, ia, tn, li, lp, mf, mi) = _unpack_inputs(self.vopts, self._W, img_w, pay)
         states, banks, fevs, out, pull = fused_vision_step(self.eng, self.vopts, states, banks, fevs, img,
                                                            it, iw, ia, tn, li, lp, mf, mi)
-        pending = self._record_pull(pull, self._pull_bufs[slot])
+        pending = self._record_pull(pull, self._pull_bufs[slot], start)
         t_fn = time.perf_counter()
         times.update(wire_image=t_img - t0, pack_payload=t_pack - t_img, payload_put=t_put - t_pack,
                      dispatch_enqueue=t_fn - t_put)
@@ -719,6 +745,7 @@ class FusedVisionDriver:
             raise ValueError("step_batch_chunk needs a driver made with chain=K > 1")
         K = self.chain
         times = dict.fromkeys(self.TIME_KEYS, 0.0)
+        start = self._start_event()
         t0 = time.perf_counter()
         img_w = imgs if isinstance(imgs, torch.Tensor) and imgs.device == self.device else self.stage_chunk(imgs)
         if img_w.shape[0] != K:
@@ -741,7 +768,7 @@ class FusedVisionDriver:
                                                                it, iw, ia, tn, li, lp, mf, mi)
             outs.append(out)
             pulls.append(pull)
-        pending = self._record_pull(torch.stack(pulls), self._chunk_pull_bufs[slot])
+        pending = self._record_pull(torch.stack(pulls), self._chunk_pull_bufs[slot], start)
         t_fn = time.perf_counter()
         outs = type(outs[0])(*(torch.stack(f) for f in zip(*outs)))
         times.update(wire_image=t_img - t0, pack_payload=t_pack - t_img, payload_put=t_put - t_pack,

@@ -30,7 +30,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ov_plane_tpu_torch.models import feature_bank as fb
 from ov_plane_tpu_torch.models.jacobians import JacobianOptions
@@ -57,11 +56,13 @@ from ov_plane_tpu_torch.ops.triangulation import TriangulationOptions
 from ov_plane_tpu_torch.state.layout import StateLayout
 from ov_plane_tpu_torch.state.propagator import PropagatorOptions, marginalize_oldest_clone, propagate_and_clone
 from ov_plane_tpu_torch.state.vio_state import VioState, tree_where
+from ov_plane_tpu_torch.utils import trace
 from ov_plane_tpu_torch.utils.config import VioConfig
 from ov_plane_tpu_torch.utils.torchenv import resolve_device
 
 
-# Profiler ranges of the step's stages (torch.profiler.record_function), in order.
+# The step's stages, in order: spans (``utils.trace``) inside the step's own
+# span ``manager.step``, and ranges of the same names under torch.profiler.
 STAGES = ("step.zupt", "step.propagate_and_clone", "step.ingest", "step.triage", "step.slam_marginalize",
           "step.plane_init", "step.plane_msckf", "step.msckf_update", "step.slam_update", "step.slam_init",
           "step.slam_anchor", "step.marginalize")
@@ -390,7 +391,17 @@ def zupt_disparity(state: VioState, bank: fb.FeatureBank, obs_id, obs_uv):
 
 def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData):
     """One camera frame of every stream (do_feature_propagate_update,
-    VioManager.cpp:330-986). Returns (state, bank, StepOutput)."""
+    VioManager.cpp:330-986). Returns (state, bank, StepOutput).
+
+    The call is the span ``manager.step``, which opens a trace frame; its
+    stages are the spans ``STAGES``. While tracing is on it counts, over all
+    streams, ``msckf.selected`` (tracks entering the MSCKF update) and
+    ``msckf.used`` (``n_msckf_used``)."""
+    with trace.span("manager.step", frame=True):
+        return _step(eng, state, bank, frame)
+
+
+def _step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData):
     if state.cov.device != eng.device:
         raise ValueError(f"state lies on {state.cov.device}, the engine on {eng.device}")
     dev = state.imu.device
@@ -402,14 +413,14 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
     #    that accepts it keeps the ZUPT-updated state (time advanced, no
     #    clone) and its pre-frame bank; the select is the last stage.
     if eng.try_zupt:
-        with record_function("step.zupt"):
+        with trace.span("step.zupt"):
             avg_disp, n_disp = zupt_disparity(state, bank, frame.obs_id, frame.obs_uv)
             state_zupt, zupt_ok = try_zupt(state, eng.zupt_opts, frame.imu_t, frame.imu_w, frame.imu_a,
                                            frame.t_new, avg_disp, n_disp)
             zupt_accepted = zupt_ok & ~(eng.zupt_opts.only_at_beginning & state.has_moved)
 
     # 1. Propagate + stochastic clone into a recycled slot.
-    with record_function("step.propagate_and_clone"):
+    with trace.span("step.propagate_and_clone"):
         state, new_slot = propagate_and_clone(state, frame.imu_t, frame.imu_w, frame.imu_a, frame.t_new,
                                               noises, gravity, eng.prop_opts)
 
@@ -417,12 +428,12 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
         # Explicit zero-motion variant (UpdaterZeroVelocity.cpp:252-313) on
         # this frame's clone; before the first clone exists the standard
         # formulation's result stands.
-        with record_function("step.zupt"):
+        with trace.span("step.zupt"):
             explicit = zupt_explicit_update(state, eng.zupt_opts, state_in.newest_clone_slot, new_slot)
             state_zupt = tree_where(state_in.num_clones > 0, explicit, state_zupt)
 
     # 2. Undistort + ingest at the new slot; non-finite pixels are dropped.
-    with record_function("step.ingest"):
+    with trace.span("step.ingest"):
         obs_finite = torch.isfinite(frame.obs_uv).all(dim=-1)
         obs_id = torch.where(obs_finite, frame.obs_id, -1)
         obs_uv = torch.where(obs_finite[..., None], frame.obs_uv, 0.0)
@@ -431,7 +442,7 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
                          gt_p=frame.obs_gt_p, gt_cp=frame.obs_gt_cp)
 
     # 3. Triage, masked off until enough clones (VioManager.cpp:355).
-    with record_function("step.triage"):
+    with trace.span("step.triage"):
         can_update = state.num_clones >= eng.min_clones_to_update
         past_delay = (state.t - state.startup_t) >= eng.dt_slam_delay
         sel_idx, sel_valid, slam_idx, slam_valid = triage(eng, state, bank, new_slot, can_update & past_delay)
@@ -442,7 +453,7 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
     n_slam_init = n_slam_update = zero
     if eng.use_slam:
         # 4. Landmarks whose track is gone leave the state.
-        with record_function("step.slam_marginalize"):
+        with trace.span("step.slam_marginalize"):
             state, _ = marginalize_lost_slam(state, bank, eng.aruco_max_id)
 
     n_plane_init = n_plane_merges = n_plane_constraints = n_plane_dropped = zero
@@ -452,7 +463,7 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
         gate = can_update & past_delay
         # 5. Frontend merges first (VioManager.cpp:516-533), then the unseen
         #    planes leave the state, then the delayed init.
-        with record_function("step.plane_init"):
+        with trace.span("step.plane_init"):
             if frame.merge_from is not None:
                 state, n_plane_merges = merge_planes(state, frame.merge_from, frame.merge_into,
                                                      eng.sigma_plane_merge, eng.plane_merge_chi2,
@@ -471,7 +482,7 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
 
         # 6a. Grouped MSCKF-plane updates of out-of-state planes (they consume
         #     their features).
-        with record_function("step.plane_msckf"):
+        with trace.span("step.plane_msckf"):
             if eng.msckf_opts.use_plane_constraint:
                 pl_state, consumed_sel, _, n_pm_drop = msckf_plane_update(state, bank, eng.plane_msckf_opts,
                                                                           sel_idx, sel_valid)
@@ -497,7 +508,8 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
 
     # 6b. MSCKF update of the selected tracks (point-on-plane rows for the
     #     features whose plane is in the state).
-    with record_function("step.msckf_update"):
+    with trace.span("step.msckf_update"):
+        trace.count("msckf.selected", sel_valid_main)
         sel_mask = fb._take(bank.mask, sel_idx) & sel_valid_main[..., None]
         plane = {}
         if eng.msckf_opts.use_plane_constraint:
@@ -528,11 +540,11 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
     if eng.use_slam:
         # 7. Landmark update with the newest observations, then 8. the
         #    delayed init of the promoted tracks.
-        with record_function("step.slam_update"):
+        with trace.span("step.slam_update"):
             upd_state, n_slam_update = slam_update(state, bank, eng.slam_opts, new_slot)
             state = tree_where(can_update, upd_state, state)
             n_slam_update = torch.where(can_update, n_slam_update, 0)
-        with record_function("step.slam_init"):
+        with trace.span("step.slam_init"):
             state, bank, n_slam_init = slam_delayed_init(state, bank, eng.slam_opts, slam_idx, slam_valid)
 
     marg_slot = state.oldest_clone_slot
@@ -540,12 +552,12 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
     if eng.use_slam and reps.is_anchored(eng.slam_opts.jac.rep):
         # Landmarks anchored at the clone about to go re-anchor at the newest
         # one first (UpdaterSLAM::change_anchors, VioManager.cpp:855-869).
-        with record_function("step.slam_anchor"):
+        with trace.span("step.slam_anchor"):
             anch_state, _ = change_anchors(state, eng.slam_opts.jac.rep, eng.prop_opts.do_fej, marg_slot,
                                            state.newest_clone_slot)
             state = tree_where(over, anch_state, state)
 
-    with record_function("step.marginalize"):
+    with trace.span("step.marginalize"):
         # 9. Free the consumed rows (to_delete semantics).
         F = bank.fid.shape[1]
         consumed = ((torch.arange(F, device=dev)[None, :, None] == sel_idx[:, None, :])
@@ -578,6 +590,7 @@ def step(eng: VioEngine, state: VioState, bank: fb.FeatureBank, frame: FrameData
         n_plane_merges=n_plane_merges, n_plane_dropped=n_plane_dropped,
         cov_ori_blk=state.cov[:, 0:3, 0:3], cov_pos_blk=state.cov[:, 3:6, 3:6],
     )
+    trace.count("msckf.used", out.n_msckf_used)
     return state, bank, out
 
 

@@ -6,8 +6,11 @@ The reference's rT1..rT8 stage bracketing and timing CSV
 with no synchronization inside, so this *staged* runner calls the same
 stages of the point path (propagation, tracking, MSCKF update, re-tri &
 marg) one at a time and ends each at a device synchronization, under the
-reference CSV's column names (``eval.io.TimingRecorder``). For kernel-level
-traces use ``torch.profiler`` around ``models.manager.step`` instead.
+reference CSV's column names (``eval.io.TimingRecorder``). The
+synchronizations make these stages' times a different thing from the
+step's: for the step's own host time per stage, record its spans
+(``utils.trace``: ``enable``, step, ``export``); for kernel-level traces
+use ``torch.profiler`` around ``models.manager.step``.
 """
 
 from __future__ import annotations

@@ -120,3 +120,90 @@ def test_cuda_device_prefetch_stages_on_card():
         assert img.is_cuda and extra["imu"].is_cuda
         got.append((k, img.sum().item(), extra["imu"].tolist()))
     assert got == [(k, 480.0 * 752.0 * k, [float(j + k) for j in range(6)]) for k in range(12)]
+
+
+@pytest.mark.cuda
+def test_cuda_trace_spans_on_the_profilers_clock_and_device_counters():
+    """``utils.trace`` on the card: spans around CUDA work hold
+    torch.profiler's ranges of the same names (CPU and CUDA activity) to
+    within 50 µs at either end, the median distance of the ends within
+    0.1 ms, and device counters add on the card and read back once, at
+    export."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ov_plane_tpu_torch.utils import trace
+
+    x = torch.randn(64, 256, 256, device="cuda")
+    ref = torch.zeros((), dtype=torch.int64, device="cuda")
+    trace.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trace.enable()
+            for _ in range(4):
+                with trace.span("manager.step", frame=True):
+                    with trace.span("step.propagate_and_clone"):
+                        for _ in range(50):
+                            x = torch.tanh(x @ x * 1e-2)
+                    with trace.span("step.msckf_update"):
+                        trace.count("msckf.used", (x >= 0).sum(dim=(1, 2)))
+                        ref += (x >= 0).sum()
+            torch.cuda.synchronize()
+        exp = trace.export()
+    finally:
+        trace.disable()
+        trace.reset()
+    assert exp["frames"] == 4 and len(exp["spans"]) == 12
+    assert exp["counters"]["msckf.used"] == int(ref) > 0
+    kineto = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name != "CUDA" and e.is_user_annotation():
+            kineto.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    gaps = []
+    for name in ("manager.step", "step.propagate_and_clone", "step.msckf_update"):
+        mine = [(s["start_ns"], s["end_ns"]) for s in exp["spans"] if s["name"] == name]
+        theirs = sorted(kineto[name])
+        assert len(mine) == len(theirs) == 4, name
+        for (a, b), (ka, kb) in zip(mine, theirs):
+            assert ka - a >= -50_000 and b - kb >= -50_000, (name, ka - a, b - kb)
+            gaps += [abs(a - ka), abs(b - kb)]
+    assert statistics.median(gaps) <= 100_000, gaps
+
+
+@pytest.mark.cuda
+def test_cuda_fused_driver_device_time_is_the_cards():
+    """On the card ``FusedVisionDriver.last_times["device"]`` is the device's
+    elapsed time from the step's start event to its pull's copy: at least
+    the device time of the work enqueued between them, at most the host's
+    wall time around the whole."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import time
+
+    from ov_plane_tpu_torch.frontend.fused import FusedVisionDriver
+    from ov_plane_tpu_torch.models.manager import VioEngine
+    from ov_plane_tpu_torch.utils.config import vision_config
+
+    cfg = vision_config()
+    drv = FusedVisionDriver(cfg, VioEngine.from_config(cfg, device="cuda"), 2)
+    cap = cfg.tpu.max_obs_per_frame
+    a = torch.randn(4096, 4096, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = drv._start_event()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(20):
+        a = torch.tanh(a @ a * 1e-3)
+    e1.record()
+    pull = torch.zeros(2, cap + 3, 8, device="cuda")
+    pull[:, :cap, 0] = -1.0
+    drv._finish(drv._record_pull(pull, drv._pull_bufs[0], start), False, dict.fromkeys(drv.TIME_KEYS, 0.0))
+    wall = time.perf_counter() - t0
+    work = e0.elapsed_time(e1) / 1e3
+    assert set(drv.last_times) == set(drv.TIME_KEYS)
+    assert 0.0 < work <= drv.last_times["device"] <= wall, (work, drv.last_times, wall)
+    drv.close()

@@ -193,6 +193,19 @@ def test_step_batch_not_pipelined_matches_jax(inputs, reference):
     assert sum(int((r["labels"][0] >= 0).sum()) for r in recs) > 0
 
 
+def test_last_times_device_is_the_step_host_time_on_the_cpu(inputs):
+    """On the CPU the step runs inside its enqueue, so ``last_times["device"]``
+    is the step's host time up to its pull: the sum of the host keys before
+    it (on a card it is the device's elapsed time, ``tests/test_torch_cuda.py``)."""
+    recs = run_port_frames(inputs, 3, planes=False)
+    for r in recs:
+        t = r["times"]
+        assert t["device"] == t["wire_image"] + t["pack_payload"] + t["payload_put"] + t["dispatch_enqueue"] + \
+            t["pull_wait"]
+        assert t["device"] > 0.0
+    assert recs[0]["times"]["pull_wait"] == 0.0 and recs[-1]["times"]["pull_wait"] > 0.0   # pipelined: no pull yet
+
+
 def test_step_batch_chunk_needs_a_chain():
     """``step_batch_chunk`` raises on a driver made without ``chain=K``; the
     driver's ``last_times`` carry the JAX keys and ``last_dbg`` is
