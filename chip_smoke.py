@@ -7,7 +7,11 @@ Phases (any failure raises and the exit code is nonzero):
 
 1. versions, the card's name and power limit, true-f32 matmul flags;
 2. build the CUDA kernels from ``ov_plane_tpu_torch/csrc`` with nvcc;
-3. check each kernel against its plain PyTorch version on the card over a
+3. (3c first) the IMU window kernel against its plain loop at the
+   benchmark cells' windows (B = 512 and 1024, W = 64, f32) and one f64
+   stream, and the host time per call of each (3d, after the Grams'
+   timings: each one's device time, L2 flushed before each call); then
+   check each Gram kernel against its plain PyTorch version on the card over a
    sweep of shapes (SWEEP: tile, chunk and range edges, empty inputs, masked
    rows, a data pointer 4 bytes off 16-byte alignment; LONE_SHAPES: one
    stream, where the f64 downdate splits more than 64 rows over a cluster),
@@ -342,14 +346,17 @@ def _is_flush(name: str) -> bool:
     return "bitwise_not" in name or "unsigned char" in name or name.startswith("Memset")
 
 
-def device_ms(fn, n: int = 15, warmup: int = 3, attempts: int = 3, parts: dict | None = None) -> float:
+def device_ms(fn, n: int = 15, warmup: int = 3, attempts: int = 3, parts: dict | None = None,
+              raw: bool = False) -> float:
     """Median device time of one call of ``fn``: the summed durations of the
     CUDA kernels it launches, as torch.profiler reports them. Before each call
     two kernels rewrite and then read FLUSH_BYTES of uint8, so every call finds
     the L2 cold and clean (no write-back of the flush's own lines is left to
     it); they are left out of the sum, and so is the host's time between
     launches. A profile that lost a kernel (the count is checked) is taken
-    again. ``parts``, if given, receives each kernel's median ms by name."""
+    again. ``parts``, if given, receives each kernel's median ms by name.
+    ``raw`` reads the profiler's raw events (``_raw_events``), for a call of
+    tens of thousands of kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -369,17 +376,22 @@ def device_ms(fn, n: int = 15, warmup: int = 3, attempts: int = 3, parts: dict |
                 flush()
                 fn()
             torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"), key=lambda e: e.time_range.start)
+        if raw:  # (name, start µs, duration µs)
+            events = sorted(((name, t0 / 1e3, dur / 1e3) for name, dev, t0, dur in _raw_events(prof) if dev),
+                            key=lambda e: e[1])
+        else:
+            events = sorted(((e.name, e.time_range.start, e.time_range.end - e.time_range.start)
+                             for e in prof.events() if e.device_type.name == "CUDA"), key=lambda e: e[1])
         calls, in_flush, by_name = [], True, {}
-        for e in events:
-            if _is_flush(e.name):
+        for name, _, dur in events:
+            if _is_flush(name):
                 in_flush = True
                 continue
             if in_flush:
                 calls.append(0.0)
                 in_flush = False
-            calls[-1] += e.time_range.end - e.time_range.start
-            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+            calls[-1] += dur
+            by_name.setdefault(name, []).append(dur)
         if len(calls) == n and all(c > 0 for c in calls):
             if parts is not None:
                 parts.update({k: statistics.median(v) / 1e3 for k, v in by_name.items()})
@@ -553,6 +565,103 @@ def time_kernels(kernels, errs, earlier_kernel):
         print(f"[time] {kname} its kernels: " + ", ".join(f"{k.split('<')[0].split()[-1]} {v:.5f} ms"
                                                         for k, v in k_parts.items()))
         print(f"[time] {kname} wrapper host time {k_host:.2f} us per call")
+    return rows
+
+
+# The IMU window kernel (phase 3c): the benchmark cells' windows in f32 and
+# one stream in f64 (the replays), (B, W, dtype), each against the plain loop.
+IMU_SHAPES = [(512, 64, F32), (1024, 64, F32), (1, 64, F64)]
+IMU_PAIR_FLOP = 7000    # per valid sample pair and stream, F's and G's zero blocks skipped (csrc/imu_propagate.cu)
+IMU_PLAIN_CALLS = 3     # timed calls of the plain loop (some 40 thousand kernels each)
+
+
+def _imu_inputs(B, W, dtype, g):
+    """A filter's window at 400 Hz for B streams (the arguments of
+    ``propagate_mean_cov`` but the options): t0 and t1 inside the first and
+    the last sample pair, the later half of the streams padded with +inf
+    times past two thirds of the window."""
+    kw = dict(dtype=torch.float64, device="cuda")
+    q = torch.randn(B, 4, generator=g, **kw)
+    q[:, 3] = q[:, 3].abs() + 1.0
+    q = q / q.norm(dim=1, keepdim=True)
+    imu = torch.cat([q, torch.randn(B, 6, generator=g, **kw), 1e-2 * torch.randn(B, 3, generator=g, **kw),
+                     0.1 * torch.randn(B, 3, generator=g, **kw)], dim=1)
+    fej = imu + 1e-3 * torch.randn(B, 16, generator=g, **kw)
+    fej[:, :4] = fej[:, :4] / fej[:, :4].norm(dim=1, keepdim=True)
+    t = 10.0 + torch.rand(B, 1, generator=g, **kw) + 0.0025 * torch.arange(W, **kw)
+    t0, t1 = t[:, 0] + 0.00075, t[:, -1] - 0.001
+    t[B // 2:, W - W // 3:] = float("inf")
+    w = 0.3 * torch.randn(B, W, 3, generator=g, **kw)
+    a = torch.tensor([0.0, 0.0, 9.81], **kw) + torch.randn(B, W, 3, generator=g, **kw)
+    noises = torch.tensor([1.6968e-4, 2.0e-3, 1.9393e-5, 3.0e-3], **kw) ** 2
+    return [x.to(dtype) for x in (imu, fej, t, w, a, t0, t1, noises, torch.tensor([0.0, 0.0, 9.81], **kw))]
+
+
+def check_imu_kernel(kernels):
+    """Phase 3c, before any profile (the profiler's hooks stay on every later
+    launch): the IMU window kernel against the plain loop at IMU_SHAPES, in
+    the benchmark's options (RK4, FEJ): f64 within TOL, f32 no further from
+    the f64 loop than 4 times the f32 loop (at least 1e-7), two calls
+    bitwise equal, one launch a call; the host time per call of each and
+    the bound. Returns the rows and the calls to time by (B, W, dtype)."""
+    from ov_plane_tpu_torch.state import propagator as prop
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    mem_bps, flops_by_type = card_peaks(torch.cuda.get_device_name(0))
+    opts = prop.PropagatorOptions()
+    rows, runs = {}, {}
+    for B, W, dtype in IMU_SHAPES:
+        x64 = _imu_inputs(B, W, torch.float64, g)
+        x = [v.to(dtype) for v in x64]
+        kern = lambda x=x: prop.propagate_mean_cov(*x, opts)  # noqa: E731
+        plain = lambda x=x: prop.propagate_mean_cov_ref(*x, opts)  # noqa: E731
+        before = kernels.imu_propagate.launches
+        got, again = kern(), kern()
+        calls = kernels.imu_propagate.launches - before
+        ref, mine = prop.propagate_mean_cov_ref(*x64, opts), plain()
+        torch.cuda.synchronize()
+        errs = {}
+        for name, k, k2, r, p in zip(("imu", "imu_fej", "phi", "qd", "last_w"), got, again, ref, mine):
+            err = (k.double() - r).abs().max().item()
+            limit = TOL[F64] * r.abs().max().item() if dtype == F64 else \
+                max(4 * (p.double() - r).abs().max().item(), 1e-7)
+            errs[name] = err
+            if not (err <= limit and torch.equal(k, k2) and calls == 2):
+                raise RuntimeError(f"imu_propagate B={B} W={W} {str(dtype)[6:]} {name}: err {err:.3e} limit "
+                                   f"{limit:.3e}, repeatable {torch.equal(k, k2)}, launches {calls} for 2 calls")
+        ta, tb = (torch.minimum(torch.maximum(v, x64[5][:, None]), x64[6][:, None]) for v in (x64[2][:, :-1],
+                                                                                             x64[2][:, 1:]))
+        pairs = int(((tb - ta > 0) & torch.isfinite(tb - ta)).sum())
+        size = torch.finfo(dtype).bits // 8
+        bytes_ = size * (B * (16 + 16 + 7 * W + 2) + 7 + B * (16 + 16 + 225 + 225 + 3))
+        flops = IMU_PAIR_FLOP * pairs
+        t_bytes, t_ops = bytes_ / mem_bps * 1e3, flops / flops_by_type[dtype] * 1e3
+        k_host = host_us(kern, n=100)
+        p_host = host_us(plain, n=IMU_PLAIN_CALLS) / 1e3
+        kernels.imu_propagate.launches = before
+        runs[(B, W, dtype)] = (kern, plain)
+        rows[(B, W, dtype)] = dict(dtype=str(dtype)[6:], max_abs_err=errs, valid_pairs=pairs, bytes=bytes_,
+                                   flops=flops, bound_ms=max(t_bytes, t_ops),
+                                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                   host_us_per_call=k_host, plain_host_ms=p_host)
+        print(f"[imu] B={B} W={W} {str(dtype)[6:]}: max err against the f64 loop " +
+              ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f"; {pairs} valid pairs; host per call: "
+              f"kernel {k_host:.2f} us, plain loop {p_host:.2f} ms")
+    return rows, runs
+
+
+def time_imu_kernel(rows, runs):
+    """Phase 3d, after the Gram kernels' timings (so their profiles run as
+    before): the device time (cold L2) of the IMU window kernel and of the
+    plain loop at each of ``check_imu_kernel``'s shapes; adds them to its rows."""
+    for key, (kern, plain) in runs.items():
+        row = rows[key]
+        k_ms = device_ms(kern, n=TIME_CALLS)
+        p_ms = device_ms(plain, n=IMU_PLAIN_CALLS, raw=True)
+        row.update(ms=k_ms, device_ms=k_ms, plain_ms=p_ms, pct_of_bound=100.0 * row["bound_ms"] / k_ms)
+        print(f"[imu] B={key[0]} W={key[1]} {row['dtype']}, device time, cold L2: kernel {k_ms:.5f} ms "
+              f"({row['pct_of_bound']:.2f}% of bound), plain loop {p_ms:.5f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']}; {row['bytes'] / 1e6:.3f} MB, {row['flops'] / 1e9:.4f} GFLOP)")
     return rows
 
 
@@ -3470,7 +3579,9 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     try:
+        imu_checked = check_imu_kernel(kernels)
         rows = time_kernels(kernels, check_kernels(kernels), earlier_kernel)
+        imu_rows = time_imu_kernel(*imu_checked)
         results = drive_lanes(refs)
     finally:
         refs.close()
@@ -3493,6 +3604,8 @@ def main() -> int:
         out.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                         launches=results["vision"][1][name], shape=list(LEAD[name][:3]),
                         **rows[(name, LEAD[name])], paths=paths))
+    out.append(dict(name="imu_propagate", route="cuda", source="ov_plane_tpu_torch/csrc/imu_propagate.cu",
+                    replaces=None, shapes=[dict(B=B, W=W, **imu_rows[(B, W, dt)]) for B, W, dt in IMU_SHAPES]))
     for p, (n_frames, launches, info) in results.items():
         print(f"[{p}] stream-frames/s {info['stream_frames_per_s']:.2f} over {n_frames} frames")
     print(smi[0])

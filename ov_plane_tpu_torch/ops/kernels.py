@@ -1,4 +1,4 @@
-"""The filter update's two dense reductions: CUDA kernels and plain versions.
+"""The port's hand-written CUDA kernels and their plain versions.
 
 Counterpart of ``ov_plane_tpu/ops/pallas_kernels.py``, whose two Pallas TPU
 kernels become Gram kernels compiled for ``sm_90a``: in f32 those of
@@ -14,6 +14,10 @@ Both outputs' matrices are the upper triangle mirrored, so they are bitwise
 symmetric, and two calls give the same bits; the plain versions
 (:func:`gram_reduce_ref`, :func:`kalman_downdate_ref`) compute the same
 function with PyTorch ops.
+
+* :func:`imu_propagate` (``csrc/imu_propagate.cu``, replacing no TPU kernel)
+  — the IMU window's mean, Φ and Qd for B streams in one launch; its plain
+  version is ``state/propagator.propagate_mean_cov_ref``.
 
 Dispatch is by the tensors' device and type and nothing else: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernels of its type (at
@@ -45,7 +49,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ov_plane_tpu_torch"
-SOURCES = {"gram_reduce": "gram_reduce.cu", "kalman_downdate": "kalman_downdate.cu"}
+SOURCES = {"gram_reduce": "gram_reduce.cu", "kalman_downdate": "kalman_downdate.cu",
+           "imu_propagate": "imu_propagate.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -388,6 +393,8 @@ def _declare(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     if name == "gram_reduce":  # H, r, Λ, η, the workspace; B, M, D, the plan, the stream
         args = {"f32": [p] * 5 + [i] * 10 + [ctypes.c_longlong, p],
                 "f64": [p] * 5 + [i] * 11 + [ctypes.c_longlong, p]}
+    elif name == "imu_propagate":  # the 9 inputs, the 5 outputs; B, W, the variant, the stream
+        args = dict.fromkeys(("f32", "f64"), [p] * 14 + [i] * 3 + [p])
     else:  # P, W, u, P', dx; B, M, D, the plan, the stream
         args = {"f32": [p] * 5 + [i] * 9 + [p], "f64": [p] * 5 + [i] * 10 + [p]}
     for suffix, types in args.items():
@@ -519,10 +526,37 @@ def kalman_downdate(cov: torch.Tensor, W: torch.Tensor, u: torch.Tensor):
     return new_cov, dx
 
 
+def imu_propagate(imu, imu_fej, imu_t, imu_w, imu_a, t0, t1, noises, gravity,
+                  use_rk4: bool, do_fej: bool, imu_avg: bool):
+    """(imu [B, 16], imu_fej [B, 16], Φ [B, 15, 15], Qd [B, 15, 15], last_w [B, 3])
+    of ``state/propagator.propagate_mean_cov_ref`` for contiguous CUDA
+    tensors of one type (imu_t [B, W], imu_w / imu_a [B, W, 3], t0 / t1
+    [B], noises [4], gravity [3]): one launch walks every stream's window,
+    in the kernel compiled for these options."""
+    B, W = imu_t.shape
+    ins = {"imu": imu, "imu_fej": imu_fej, "imu_t": imu_t, "imu_w": imu_w, "imu_a": imu_a, "t0": t0, "t1": t1,
+           "noises": noises, "gravity": gravity}
+    want = dict(zip(ins, ((B, 16), (B, 16), (B, W), (B, W, 3), (B, W, 3), (B,), (B,), (4,), (3,))))
+    for k, x in ins.items():
+        if tuple(x.shape) != want[k]:
+            raise ValueError(f"expected {k} of shape {want[k]}, got {tuple(x.shape)}")
+    _check_cuda(ins)
+    outs = [torch.empty(shape, dtype=imu.dtype, device=imu.device)
+            for shape in ((B, 16), (B, 16), (B, 15, 15), (B, 15, 15), (B, 3))]
+    variant = 4 * bool(use_rk4) + 2 * bool(do_fej) + (bool(imu_avg) and not use_rk4)
+    with torch.cuda.device(imu.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("imu_propagate", imu.dtype, *(x.data_ptr() for x in (*ins.values(), *outs)), B, W, variant, stream)
+    imu_propagate.launches += 1
+    return tuple(outs)
+
+
 gram_reduce.launches = 0
 kalman_downdate.launches = 0
+imu_propagate.launches = 0
 
 
 def reset_launch_counts() -> None:
     gram_reduce.launches = 0
     kalman_downdate.launches = 0
+    imu_propagate.launches = 0

@@ -1,11 +1,14 @@
 """IMU mean + covariance propagation and stochastic cloning, for B streams.
 
 Counterpart of ``ov_plane_tpu/state/propagator.py``. The masked scan over a
-fixed-size IMU window becomes a Python loop over its sample pairs: each pair
-is clipped to the propagation interval [t0, t1] with linear interpolation of
-the boundary samples, and a clipped interval of zero length (padding, +inf
-times) leaves the state untouched. RK4 / discrete means and the FEJ or
-standard analytic Φ and G blocks follow Propagator.cpp:343-569.
+fixed-size IMU window walks its sample pairs: each pair is clipped to the
+propagation interval [t0, t1] with linear interpolation of the boundary
+samples, and a clipped interval of zero length (padding, +inf times) leaves
+the state untouched. RK4 / discrete means and the FEJ or standard analytic
+Φ and G blocks follow Propagator.cpp:343-569. On a CUDA tensor one
+hand-written kernel walks every stream's window (``ops/kernels.imu_propagate``);
+on a CPU tensor its plain version, a Python loop over the pairs
+(:func:`propagate_mean_cov_ref`).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from ov_plane_tpu_torch.ops import ekf
+from ov_plane_tpu_torch.ops import ekf, kernels
 from ov_plane_tpu_torch.ops.quat import exp_so3, jr_so3, omega, quat_2_rot, quat_multiply, quat_norm, skew
 from ov_plane_tpu_torch.state.vio_state import VioState
 
@@ -167,7 +170,21 @@ def predict_and_compute(imu, imu_fej, dt, w1, a1, w2, a2, noises, gravity, opts:
 
 def propagate_mean_cov(imu, imu_fej, imu_t, imu_w, imu_a, t0, t1, noises, gravity, opts: PropagatorOptions):
     """Walk the IMU window's consecutive sample pairs over [t0, t1] (t0, t1 [B];
-    imu_t [B, I]; imu_w/a [B, I, 3]). Returns (imu, imu_fej, Φ, Qd, last_w)."""
+    imu_t [B, I]; imu_w/a [B, I, 3]). Returns (imu, imu_fej, Φ, Qd, last_w).
+    A CPU tensor takes :func:`propagate_mean_cov_ref`; any other goes to the
+    kernel, which raises where it cannot take it."""
+    if imu.device.type == "cpu":
+        return propagate_mean_cov_ref(imu, imu_fej, imu_t, imu_w, imu_a, t0, t1, noises, gravity, opts)
+    B, W = imu.shape[0], imu_t.shape[-1]
+    return kernels.imu_propagate(
+        imu.contiguous(), imu_fej.contiguous(), imu_t.expand(B, W).contiguous(),
+        imu_w.expand(B, W, 3).contiguous(), imu_a.expand(B, W, 3).contiguous(), t0.expand(B).contiguous(),
+        t1.expand(B).contiguous(), noises.contiguous(), gravity.contiguous(), opts.use_rk4, opts.do_fej, opts.imu_avg)
+
+
+def propagate_mean_cov_ref(imu, imu_fej, imu_t, imu_w, imu_a, t0, t1, noises, gravity, opts: PropagatorOptions):
+    """Plain version of :func:`propagate_mean_cov`: a Python loop over the
+    window's sample pairs, each masked where its clipped interval is empty."""
     B, dtype, dev = imu.shape[0], imu.dtype, imu.device
     phi = torch.eye(15, dtype=dtype, device=dev).expand(B, 15, 15)
     qd = torch.zeros(B, 15, 15, dtype=dtype, device=dev)

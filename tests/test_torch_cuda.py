@@ -13,8 +13,17 @@ of zero (masked) rows, and H at storage offset 1 (4 bytes off 16-byte
 alignment in f32) in every other entry. f32 agrees to 1e-5 of the largest
 value (the row sums run in another order than the plain product), f64 to
 1e-12; Λ and P′ must be bitwise symmetric, and two calls bitwise equal.
+
+The IMU window kernel (``kernels.imu_propagate``) is held to its plain loop
+(``propagator.propagate_mean_cov_ref``) on the same card inputs: B 1, 7 and
+512, W 2, 17 and 64, padded tails, a window wholly outside [t0, t1], t0 and
+t1 inside a sample pair, every (RK4, FEJ) pair and the discrete mean without
+averaging, f32 and f64.
 """
 
+import itertools
+
+import numpy as np
 import pytest
 import torch
 
@@ -207,3 +216,118 @@ def test_cuda_fused_driver_device_time_is_the_cards():
     assert set(drv.last_times) == set(drv.TIME_KEYS)
     assert 0.0 < work <= drv.last_times["device"] <= wall, (work, drv.last_times, wall)
     drv.close()
+
+
+IMU_NOISES = np.array([1.6968e-4, 2.0e-3, 1.9393e-5, 3.0e-3]) ** 2
+IMU_GRAVITY = np.array([0.0, 0.0, 9.81])
+IMU_OPTS = [(True, True, True), (True, False, True), (False, True, True), (False, False, True), (False, True, False)]
+
+
+def _imu_window(B, W, seed):
+    """f64 inputs of ``propagate_mean_cov`` for B streams of a W-sample window
+    at 400 Hz: t0 inside the first sample pair and t1 inside the last, the
+    later half of the streams padded with +inf times past two thirds of the
+    window (the pair into the padding integrates to t1 on its first sample),
+    the first stream's t0 before its window and, where B > 1, the last
+    stream's [t0, t1] wholly before it."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, 4))
+    q[:, 3] = np.abs(q[:, 3]) + 1.0
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    imu = np.concatenate([q, 3 * rng.normal(size=(B, 3)), rng.normal(size=(B, 3)), 1e-2 * rng.normal(size=(B, 3)),
+                          0.1 * rng.normal(size=(B, 3))], axis=1)
+    fej = imu + 1e-3 * rng.normal(size=imu.shape)
+    fej[:, :4] /= np.linalg.norm(fej[:, :4], axis=1, keepdims=True)
+    dt = 1.0 / 400
+    t = 10.0 + rng.uniform(size=(B, 1)) + dt * np.arange(W) + 1e-5 * rng.uniform(size=(B, W))
+    t0, t1 = t[:, 0] + 0.3 * dt, t[:, W - 1] - 0.4 * dt
+    if W > 2:
+        t[B // 2:, W - W // 3:] = np.inf
+    if B > 2:
+        t0[0] = t[0, 0] - 1.0
+    if B > 1:
+        t0[-1], t1[-1] = t[-1, 0] - 6.0, t[-1, 0] - 5.0
+    w = 0.3 * rng.normal(size=(B, W, 3))
+    a = np.array([0.0, 0.0, 9.81]) + rng.normal(size=(B, W, 3))
+    return [torch.tensor(x, device="cuda") for x in (imu, fej, t, w, a, t0, t1, IMU_NOISES, IMU_GRAVITY)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,W", list(itertools.product((1, 7, 512), (2, 17, 64))))
+def test_cuda_imu_propagate_matches_plain_loop(B, W):
+    """The kernel against the plain loop on the same card inputs: f64 within
+    1e-12 of each output's largest value; f32 no further from the f64 loop
+    than 4 times the f32 loop is (an f32 sum in another order differs by
+    rounding), at least 1e-7; the window wholly outside leaves Φ = I, Qd = 0
+    and the state untouched; two calls give the same bits; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel is built with nvcc for sm_90a")
+    from ov_plane_tpu_torch.state import propagator as prop
+
+    x64 = _imu_window(B, W, seed=1000 * B + W)
+    x32 = [x.float() for x in x64]
+    names = ("imu", "imu_fej", "phi", "qd", "last_w")
+    for rk4, fej, avg in IMU_OPTS:
+        opts = prop.PropagatorOptions(use_rk4=rk4, do_fej=fej, imu_avg=avg)
+        ref = prop.propagate_mean_cov_ref(*x64, opts)
+        plain32 = prop.propagate_mean_cov_ref(*x32, opts)
+        for x in (x64, x32):
+            before = kernels.imu_propagate.launches
+            got = prop.propagate_mean_cov(*x, opts)
+            again = prop.propagate_mean_cov(*x, opts)
+            assert kernels.imu_propagate.launches == before + 2
+            torch.cuda.synchronize()
+            for n, k, k2, r, p in zip(names, got, again, ref, plain32):
+                case = (B, W, rk4, fej, avg, str(k.dtype), n)
+                assert k.dtype == x[0].dtype and torch.equal(k, k2), case
+                if k.dtype == torch.float64:
+                    assert (k - r).abs().max() <= 1e-12 * r.abs().max(), case
+                else:
+                    err, err_plain = (k.double() - r).abs().max(), (p.double() - r).abs().max()
+                    assert err <= max(4 * err_plain, 1e-7), (case, err.item(), err_plain.item())
+            if B > 1:
+                assert torch.equal(got[2][-1], torch.eye(15, dtype=x[0].dtype, device="cuda"))
+                assert not got[3][-1].any() and not got[4][-1].any()
+                assert torch.equal(got[0][-1], x[0][-1]) and torch.equal(got[1][-1], x[1][-1])
+
+
+@pytest.mark.cuda
+def test_cuda_propagate_and_clone_and_fast_state_propagate_reach_the_imu_kernel():
+    """``propagate_and_clone`` (every filter path's propagation, here with the
+    time offset calibrated) and ``fast_state_propagate`` (B·T windows) on the
+    card launch the kernel once and agree with the same steps on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ov_plane_tpu_torch.state import propagator as prop
+    from ov_plane_tpu_torch.state.layout import StateLayout
+    from ov_plane_tpu_torch.state.vio_state import VioState
+
+    B, W = 5, 64
+    imu, fej, t, w, a, t0, _, noises, gravity = (x.cpu() for x in _imu_window(B, W, seed=3))
+    lay = StateLayout(max_clones=4, max_slam=2, max_planes=1)
+    st = VioState.create(lay, B, device="cpu")
+    rng = np.random.default_rng(4)
+    A = torch.tensor(rng.normal(size=(B, lay.dim, lay.dim)))
+    full = lambda v: torch.full((B,), v, dtype=torch.float64)  # noqa: E731
+    st = st.replace(t=t0 - 0.01, last_dt=full(0.01), calib_dt=full(0.002), imu=imu, imu_fej=fej,
+                    cov=1e-3 * A @ A.mT + torch.eye(lay.dim, dtype=torch.float64))
+    opts = prop.PropagatorOptions(do_calib_camera_timeoffset=True)
+    t_new = t0 + 0.1
+    card = VioState(**{k: v.cuda() if isinstance(v, torch.Tensor) else v for k, v in vars(st).items()})
+    before = kernels.imu_propagate.launches
+    out, slot = prop.propagate_and_clone(card, t.cuda(), w.cuda(), a.cuda(), t_new.cuda(), noises.cuda(),
+                                         gravity.cuda(), opts)
+    assert kernels.imu_propagate.launches == before + 1
+    ref, ref_slot = prop.propagate_and_clone(st, t, w, a, t_new, noises, gravity, opts)
+    assert torch.equal(slot.cpu(), ref_slot) and torch.equal(out.clones_t.cpu(), ref.clones_t)
+    for name in ("imu", "imu_fej", "cov", "clones_q", "clones_p"):
+        got, want = getattr(out, name).cpu(), getattr(ref, name)
+        assert (got - want).abs().max() <= 1e-12 * want.abs().max(), name
+    tgt = t0[:, None] + torch.linspace(0.0, 0.12, 16, dtype=torch.float64)
+    before = kernels.imu_propagate.launches
+    got16, gotcov = prop.fast_state_propagate(card, t.cuda(), w.cuda(), a.cuda(), tgt.cuda(), noises.cuda(),
+                                              gravity.cuda(), opts)
+    assert kernels.imu_propagate.launches == before + 1
+    ref16, refcov = prop.fast_state_propagate(st, t, w, a, tgt, noises, gravity, opts)
+    assert (got16.cpu() - ref16).abs().max() <= 1e-12 * ref16.abs().max()
+    assert (gotcov.cpu() - refcov).abs().max() <= 1e-12 * refcov.abs().max()

@@ -347,6 +347,53 @@ def test_build_key_follows_every_included_header(tmp_path, monkeypatch):
         assert {f.name for f in kernels.source_files(name)} == {f"{name}.cu", "gram_dmma.cuh", "gram_tile.cuh"}
 
 
+def test_imu_kernel_is_built_like_the_others(tmp_path, monkeypatch):
+    """The IMU window kernel sits in the build table beside the grams: one
+    source with no csrc/ header, a library named by its hash (an edit of the
+    .cu renames it), and a launcher of the 14 pointers, B, W, the variant
+    and the stream."""
+    import ctypes
+    from types import SimpleNamespace
+
+    assert kernels.SOURCES["imu_propagate"] == "imu_propagate.cu"
+    assert [f.name for f in kernels.source_files("imu_propagate")] == ["imu_propagate.cu"]
+    src = (kernels.CSRC / "imu_propagate.cu").read_text()
+    (tmp_path / "imu_propagate.cu").write_text(src)
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = kernels._lib_path("imu_propagate")
+    assert before.name.startswith("libovp_imu_propagate_") and before.parent == kernels.BUILD_DIR
+    (tmp_path / "imu_propagate.cu").write_text(src.replace("kChunk = 64", "kChunk = 32"))
+    assert kernels._lib_path("imu_propagate") != before
+    fns = {f"ovp_imu_propagate_{t}": SimpleNamespace() for t in ("f32", "f64")}
+    kernels._declare(SimpleNamespace(**fns), "imu_propagate")
+    for fn in fns.values():
+        assert fn.argtypes == [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def test_propagate_mean_cov_dispatch_by_device():
+    """A CPU tensor takes the plain loop (no launch, the same bits); a tensor
+    on any other device goes to the kernel, which raises where it cannot take
+    it: no fallback."""
+    from ov_plane_tpu_torch.state import propagator as prop
+
+    B, W = 2, 5
+    g = torch.Generator().manual_seed(0)
+    imu = torch.zeros(B, 16, dtype=torch.float64)
+    imu[:, 3] = 1.0
+    t = 1.0 + 0.0025 * torch.arange(W, dtype=torch.float64).expand(B, W)
+    args = (imu, imu.clone(), t, torch.randn(B, W, 3, generator=g, dtype=torch.float64),
+            torch.randn(B, W, 3, generator=g, dtype=torch.float64), t[:, 0] + 1e-3, t[:, -1] - 1e-3,
+            torch.full((4,), 1e-6, dtype=torch.float64), torch.tensor([0.0, 0.0, 9.81], dtype=torch.float64))
+    before = kernels.imu_propagate.launches
+    got = prop.propagate_mean_cov(*args, prop.PropagatorOptions())
+    for a, b in zip(got, prop.propagate_mean_cov_ref(*args, prop.PropagatorOptions())):
+        assert torch.equal(a, b)
+    assert kernels.imu_propagate.launches == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        prop.propagate_mean_cov(*(a.to("meta") for a in args), prop.PropagatorOptions())
+    assert kernels.imu_propagate.launches == before
+
+
 @pytest.mark.parametrize("D", sorted(set(SWEEP_D) | {102, 114, 129, 141, 147, 156, 204, 255, 256, 511}))
 def test_f64_items_cover_every_upper_fragment_once(D):
     """The warp items of the f64 kernels (``gram_dmma.cuh`` ``item``,

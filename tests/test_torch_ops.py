@@ -372,6 +372,59 @@ def test_propagate_and_clone_one_window(rk4, fej):
         close(marg.clones_t[b], j_marg.clones_t)
 
 
+IMU_EDGE_CASES = {  # case: (use_rk4, do_fej, imu_avg)
+    "padding": (True, True, True), "outside": (True, False, True), "inside_pair": (False, True, True),
+    "w2": (False, False, True), "discrete_no_avg": (False, True, False)}
+
+
+@pytest.mark.parametrize("case", list(IMU_EDGE_CASES))
+def test_propagate_mean_cov_ref_edge_cases(case):
+    """The plain IMU loop (the CUDA kernel's reference) against the JAX scan
+    at the window's edges: +inf padding of three lengths (the pair into the
+    padding integrates to t1 on its first sample), windows wholly before and
+    wholly after [t0, t1] (Φ = I, Qd = 0, the state untouched), t0 and t1
+    inside one sample pair, a window of two samples, and the discrete mean
+    without averaging."""
+    rk4, fej, avg = IMU_EDGE_CASES[case]
+    rng = np.random.default_rng(sorted(IMU_EDGE_CASES).index(case))
+    B, W, dt = 3, 2 if case == "w2" else 24, 1.0 / 400
+    q = unit_quats(rng, B)
+    imu = np.concatenate([q, rng.normal(size=(B, 6)), 1e-2 * rng.normal(size=(B, 3)), 0.1 * rng.normal(size=(B, 3))],
+                         axis=1)
+    imu_fej = imu + 1e-3 * rng.normal(size=imu.shape)
+    imu_fej[:, :4] /= np.linalg.norm(imu_fej[:, :4], axis=1, keepdims=True)
+    imu_t = 5.0 + rng.uniform(size=(B, 1)) + dt * np.arange(W) + 1e-5 * rng.uniform(size=(B, W))
+    t0, t1 = imu_t[:, 0] + 0.3 * dt, imu_t[:, -1] - 0.4 * dt
+    if case == "padding":
+        for b in range(B):
+            imu_t[b, W - 3 - 4 * b:] = np.inf
+        t1[2] = imu_t[2, 5] + 0.5 * dt
+    elif case == "outside":
+        t0[0], t1[0] = imu_t[0, 0] - 2.0, imu_t[0, 0] - 1.0
+        t0[1], t1[1] = imu_t[1, -1] + 1.0, imu_t[1, -1] + 2.0
+    elif case == "inside_pair":
+        t0, t1 = imu_t[:, 10] + 0.2 * dt, imu_t[:, 10] + 0.7 * dt
+    imu_w = 0.3 * rng.normal(size=(B, W, 3))
+    imu_a = np.array([0.0, 0.0, 9.81]) + rng.normal(size=(B, W, 3))
+    noises = np.array([1.7e-4, 2e-3, 1.9e-5, 3e-3]) ** 2
+    gravity = np.array([0.0, 0.0, 9.81])
+    out = prop.propagate_mean_cov_ref(*(t(x) for x in (imu, imu_fej, imu_t, imu_w, imu_a, t0, t1, noises, gravity)),
+                                      prop.PropagatorOptions(use_rk4=rk4, do_fej=fej, imu_avg=avg))
+    j_opts = j_prop.PropagatorOptions(use_rk4=rk4, do_fej=fej, imu_avg=avg)
+    for b in range(B):
+        ref = j_prop.propagate_mean_cov(imu[b], imu_fej[b], imu_t[b], imu_w[b], imu_a[b], t0[b], t1[b], noises,
+                                        gravity, j_opts)
+        for got, want in zip(out, ref):
+            close(got[b], want, rtol=1e-10, atol=1e-12)
+    if case == "outside":
+        for b in (0, 1):
+            assert torch.equal(out[2][b], torch.eye(15, dtype=torch.float64)) and not out[3][b].any()
+            assert torch.equal(out[0][b], t(imu[b])) and torch.equal(out[1][b], t(imu_fej[b]))
+            assert not out[4][b].any()
+    else:
+        assert not torch.equal(out[2][0], torch.eye(15, dtype=torch.float64))
+
+
 # --------------------------------------------------------------------------- feature bank + triage
 
 
